@@ -1,0 +1,307 @@
+"""Batched CNN serving engine over the executor (PyTorch counterpart of
+``repro.exec.serving``).
+
+  * **batch buckets** — power-of-two batch sizes, each with its own
+    ahead-of-time CnnPlan (scheduler.schedule_buckets on one shared plan
+    cache).  A request is zero-padded up to the smallest bucket that fits
+    and the results are sliced back; requests larger than the top bucket
+    are chunked.  Zero padding is numerics-neutral: the per-tensor
+    quantize scale is a max over |activations| and the padded images stay
+    zero through every layer, so the real rows' logits are bitwise what an
+    exact-size batch would produce.  (Chunking is not: each chunk is its
+    own batch with its own quantize scale.);
+
+  * **warmup()** — runs every bucket once with a dummy batch, so the
+    kernel build and the first-use costs of every bucket shape are paid
+    before the first request;
+
+  * **serving metrics** — p50/p99 request latency, sustained throughput,
+    padding-overhead fraction, plan-cache stats, and the photonic model's
+    energy accounting of the served stream (modeled joules per inference,
+    padding included, and sustained watts) from each bucket plan via
+    core.hw.trace_energy.
+
+Noise: a noise-enabled engine requires a root seed per ``infer`` call
+(per-chunk seeds are folded in, per-layer seeds inside the forward).
+
+Not ported yet: the reference's ``MicroBatcher`` and its data-parallel
+path over several devices.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import hw
+from repro_torch.core.photonic_gemm import fold_seed
+from repro_torch.core.types import PhotonicConfig, resolve_device
+from repro_torch.exec import executor as ex
+from repro_torch.exec import plan_cache as pc
+from repro_torch.exec.scheduler import CnnPlan, HardwareSpec, schedule_buckets
+from repro_torch.models import cnn as cnn_mod
+
+__all__ = ["ServingEngine", "power_of_two_buckets", "bucket_for"]
+
+#: How many recent request latencies the metrics window keeps.
+_LATENCY_WINDOW = 16384
+
+
+def power_of_two_buckets(max_batch: int) -> Tuple[int, ...]:
+    """(1, 2, 4, ..., max_batch) with max_batch rounded UP to a power
+    of two — a request never lands in a smaller bucket than itself."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    buckets: List[int] = [1]
+    while buckets[-1] < max_batch:
+        buckets.append(buckets[-1] * 2)
+    return tuple(buckets)
+
+
+def bucket_for(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n (buckets ascending; n must fit the largest)."""
+    for b in buckets:
+        if b >= n:
+            return b
+    raise ValueError(f"batch {n} exceeds the largest bucket "
+                     f"{buckets[-1]} — the engine chunks before bucketing, "
+                     f"so this is an internal error")
+
+
+def _percentile(sorted_vals: Sequence[float], q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    idx = min(len(sorted_vals) - 1, int(q * len(sorted_vals)))
+    return sorted_vals[idx]
+
+
+class ServingEngine:
+    """Bucketed, warmed-up CNN serving on one device.
+
+    One engine serves one network (lowering + params) on one accelerator
+    config.  Entry points are thread-safe: concurrent request threads
+    serialize only on metrics bookkeeping.
+
+    Parameters
+    ----------
+    params, acc, cfg : the executor's weight dict, the hardware (an
+        AcceleratorConfig, or — preferred — a core.hw.OperatingPoint, in
+        which case ``cfg`` may be omitted and is derived via
+        ``op.kernel_config()``), and the PhotonicConfig numerics.  A
+        ``cfg`` that disagrees with the plans' hardware is rejected here.
+    lowering : op-graph / legacy tuple; default small CNN.
+    in_hw : input spatial size (int or (H, W)).
+    max_batch : largest bucket (rounded up to a power of two).  Larger
+        requests are chunked into top-bucket pieces.
+    impl : 'auto' | 'kernel' | 'ref' (ops.photonic_matmul).
+    plan_cache : shared PlanCache (fresh one per engine by default).
+    data_parallel : not ported yet — True raises.
+    device : where to serve — the CUDA card unless the caller names
+        another device (``device="cpu"`` runs the plain versions).
+    """
+
+    def __init__(self, params: dict, acc: HardwareSpec,
+                 cfg: Optional[PhotonicConfig] = None, lowering=None,
+                 in_hw=16, max_batch: int = 32, impl: str = "auto",
+                 objective: str = "latency",
+                 plan_cache: Optional[pc.PlanCache] = None,
+                 data_parallel: bool = False, device=None) -> None:
+        if data_parallel:
+            raise ValueError(
+                "data_parallel serving is not ported to PyTorch yet — "
+                "serve on one device (data_parallel=False)")
+        if cfg is None:
+            if not isinstance(acc, hw.OperatingPoint):
+                raise ValueError(
+                    "cfg is required when acc is a bare AcceleratorConfig "
+                    "— pass a PhotonicConfig, or hand the engine a "
+                    "core.hw.OperatingPoint and let it derive the kernel "
+                    "config coherently (op.kernel_config())")
+            cfg = acc.kernel_config()
+        self.device = resolve_device(device)
+        self._params = {k: torch.as_tensor(v).to(self.device)
+                        for k, v in params.items()}
+        self._cfg = cfg
+        self._impl = impl
+        self._lowering = ex._norm_lowering(lowering)
+        self._in_hw = ((in_hw, in_hw) if isinstance(in_hw, int)
+                       else (int(in_hw[0]), int(in_hw[1])))
+        self._in_ch = cnn_mod.as_graph(self._lowering,
+                                       params=self._params).input.cout
+        self.buckets = power_of_two_buckets(max_batch)
+        self.plan_cache = (plan_cache if plan_cache is not None
+                           else pc.PlanCache())
+        gemms = cnn_mod.lowered_gemms(self._params, self._lowering,
+                                      self._in_hw)
+        self.plans: Dict[int, CnnPlan] = schedule_buckets(
+            gemms, acc, self.buckets, objective, cache=self.plan_cache)
+        # Every bucket shares one hardware spec, so checking one plan
+        # pins cfg against all of them (the executor re-checks per batch).
+        hw.check_kernel_plan_coherence(cfg, self.plans[self.buckets[0]])
+
+        self._lock = threading.Lock()
+        self._latencies: List[float] = []
+        self._requests = 0
+        self._images = 0
+        self._blocked_images = 0
+        self._batches = 0
+        self._padded_slots = 0
+        self._executed_slots = 0
+        self._busy_s = 0.0
+        self._warm = False
+        # Modeled photonic energy of the executed stream, per bucket from
+        # the plans; a padded bucket is charged in full.
+        self._bucket_energy = {b: hw.trace_energy(self.plans[b])
+                               for b in self.buckets}
+        self._energy_j = 0.0
+        self._model_time_s = 0.0
+
+    # -- bucket plumbing -----------------------------------------------------
+    @property
+    def max_bucket(self) -> int:
+        return self.buckets[-1]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _run_bucket(self, xb: torch.Tensor, seed: Optional[int],
+                    bucket: int) -> torch.Tensor:
+        logits, _, _ = ex._forward(
+            self._params, xb, seed, lowering=self._lowering,
+            plan=self.plans[bucket], cfg=self._cfg, impl=self._impl,
+            collect_activations=False)
+        return logits
+
+    def _infer_chunk(self, chunk: torch.Tensor,
+                     seed: Optional[int]) -> torch.Tensor:
+        n = chunk.shape[0]
+        bucket = bucket_for(n, self.buckets)
+        pad = bucket - n
+        xb = (chunk if pad == 0 else torch.cat(
+            [chunk, chunk.new_zeros((pad,) + tuple(chunk.shape[1:]))]))
+        ex._validate(xb, self.plans[bucket], self._cfg, self._lowering, seed)
+        logits = self._run_bucket(xb, seed, bucket)
+        te = self._bucket_energy[bucket]
+        with self._lock:
+            self._batches += 1
+            self._padded_slots += pad
+            self._executed_slots += bucket
+            self._energy_j += te.energy_j
+            self._model_time_s += te.latency_s
+        return logits[:n] if pad else logits
+
+    # -- public entry points -------------------------------------------------
+    def warmup(self, seed: Optional[int] = None) -> Dict[int, float]:
+        """Run every bucket once with a dummy batch (kernel build and
+        first-use costs paid up front).  Returns {bucket: cold_seconds}."""
+        if not self._cfg.noise_enabled:
+            seed = None
+        elif seed is None:
+            seed = 0
+        h, w = self._in_hw
+        cold: Dict[int, float] = {}
+        for b in self.buckets:
+            x = torch.zeros((b, h, w, self._in_ch), dtype=torch.float32,
+                            device=self.device)
+            t0 = time.perf_counter()
+            self._run_bucket(x, seed, b)
+            self._sync()
+            cold[b] = time.perf_counter() - t0
+        with self._lock:
+            self._warm = True
+        return cold
+
+    def infer(self, x, seed: Optional[int] = None,
+              block: bool = True) -> torch.Tensor:
+        """Serve one request: (N, H, W, C) images -> (N, classes) logits.
+
+        N is arbitrary: it is padded up to the smallest bucket that fits
+        (chunked into top-bucket pieces first if N > max_bucket; with a
+        seed, each chunk folds in its index).  ``block=True`` waits for
+        the device so the recorded latency is true request latency;
+        ``block=False`` returns as soon as the work is queued — such calls
+        count toward request/image/padding totals but not toward the
+        latency percentiles or sustained_ips.
+        """
+        t0 = time.perf_counter()
+        x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
+        if x.dim() != 4:
+            raise ValueError(f"x must be (N, H, W, C) images, got shape "
+                             f"{tuple(x.shape)} — for a single image use "
+                             f"infer_one or x[None]")
+        n = x.shape[0]
+        if n == 0:
+            raise ValueError("empty request: x has batch 0")
+        if not self._cfg.noise_enabled:
+            seed = None
+        outs: List[torch.Tensor] = []
+        start, ci = 0, 0
+        n_chunks = -(-n // self.max_bucket)
+        while start < n:
+            take = min(self.max_bucket, n - start)
+            cs = (fold_seed(seed, ci)
+                  if seed is not None and n_chunks > 1 else seed)
+            outs.append(self._infer_chunk(x[start:start + take], cs))
+            start += take
+            ci += 1
+        logits = outs[0] if len(outs) == 1 else torch.cat(outs)
+        if block:
+            self._sync()
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self._requests += 1
+            self._images += n
+            if block:
+                self._blocked_images += n
+                self._busy_s += dt
+                self._latencies.append(dt)
+                if len(self._latencies) > _LATENCY_WINDOW:
+                    del self._latencies[:-_LATENCY_WINDOW]
+        return logits
+
+    def infer_one(self, image, seed: Optional[int] = None) -> torch.Tensor:
+        """Serve a single (H, W, C) image -> (classes,) logits."""
+        image = torch.as_tensor(image)
+        if image.dim() != 3:
+            raise ValueError(f"image must be (H, W, C), got shape "
+                             f"{tuple(image.shape)}")
+        return self.infer(image[None], seed=seed)[0]
+
+    def stats(self) -> dict:
+        """Serving metrics + the plan-cache stats."""
+        with self._lock:
+            lat = sorted(self._latencies)
+            out = {
+                "requests": self._requests,
+                "images": self._images,
+                "batches": self._batches,
+                "padded_slots": self._padded_slots,
+                "executed_slots": self._executed_slots,
+                "padding_fraction": (
+                    self._padded_slots / self._executed_slots
+                    if self._executed_slots else 0.0),
+                "latency_p50_s": _percentile(lat, 0.50),
+                "latency_p99_s": _percentile(lat, 0.99),
+                "latency_mean_s": (sum(lat) / len(lat)) if lat else 0.0,
+                "sustained_ips": (self._blocked_images / self._busy_s
+                                  if self._busy_s > 0 else 0.0),
+                "buckets": list(self.buckets),
+                "data_parallel": False,
+                "n_devices": 1,
+                "device": str(self.device),
+                "warmed_up": self._warm,
+                # Photonic-model energy of the served stream (not the
+                # host's or the card's electricity): joules per real
+                # inference, padding included, and the accelerator's
+                # sustained draw over the modeled busy time.
+                "modeled_energy_j": self._energy_j,
+                "modeled_j_per_image": (self._energy_j / self._images
+                                        if self._images else 0.0),
+                "modeled_sustained_w": (self._energy_j / self._model_time_s
+                                        if self._model_time_s > 0 else 0.0),
+            }
+        out["plan_cache"] = self.plan_cache.stats()
+        return out

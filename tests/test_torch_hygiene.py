@@ -1,0 +1,147 @@
+"""Port hygiene: importing ``repro_torch`` loads neither JAX nor the
+reference package and compiles nothing; entry points run on the CUDA card
+unless told otherwise and never fall back to the CPU quietly; and
+``chip_smoke.py`` imports neither package and refuses to run without a
+card."""
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.core import types as ttypes
+from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
+from repro_torch.core import perf_model as tpm
+from repro_torch.exec import ServingEngine, execute_cnn
+from repro_torch.kernels import taom_gemm
+from repro_torch.models.zoo_cnn import ZOO
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+
+_IMPORT_ALL = r"""
+import json, pkgutil, importlib, subprocess, sys
+calls = []
+class _Spy(subprocess.Popen):
+    def __init__(self, *a, **k):
+        calls.append(repr(a[0] if a else k.get("args")))
+        raise RuntimeError("no process may start at import time")
+subprocess.Popen = _Spy
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.kernels import taom_gemm
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(k for k in sys.modules
+                      if k.split(".")[0] in ("jax", "jaxlib", "repro")),
+    "processes": calls,
+    "library_loaded": taom_gemm._LIB is not None,
+}))
+"""
+
+
+def test_import_loads_no_jax_no_reference_and_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.taom_gemm" in report["modules"]
+    assert "repro_torch.exec.serving" in report["modules"]
+    assert report["foreign"] == []
+    assert report["processes"] == []
+    assert report["library_loaded"] is False
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small():
+    model = ZOO["small_cnn"]
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               device="cpu")
+    acc = tpm.AcceleratorConfig.equal_area("heana", Dataflow.OS, 1.0)
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                         noise_enabled=False)
+    return model, params, acc, cfg
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    model, params, acc, cfg = _small()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttypes.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttypes.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(params, acc, cfg, lowering=model.graph,
+                      in_hw=model.in_hw)
+    engine = ServingEngine(params, acc, cfg, lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=2, device="cpu")
+    x = torch.zeros(2, *model.in_hw, model.in_ch)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        execute_cnn(params, x, engine.plans[2], cfg, lowering=model.graph)
+    got = execute_cnn(params, x, engine.plans[2], cfg, lowering=model.graph,
+                      device="cpu")
+    assert got.logits.shape == (2, 10)
+    with pytest.raises(ValueError, match="data_parallel"):
+        ServingEngine(params, acc, cfg, lowering=model.graph,
+                      in_hw=model.in_hw, device="cpu", data_parallel=True)
+
+
+def test_seeded_params_are_device_independent():
+    model = ZOO["resnet_mini"]
+    a = model.init_params(torch.Generator().manual_seed(3), device="cpu")
+    b = model.init_params(torch.Generator().manual_seed(3), device="cpu")
+    assert list(a) == [n.name for n in model.graph.gemm_nodes]
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert all(v.device.type == "cpu" for v in a.values())
+
+
+def test_kernel_wrapper_refuses_other_devices():
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83)
+    meta = torch.empty(4, 10, device="meta")
+    with pytest.raises(ValueError, match="no TAOM kernel"):
+        taom_gemm.taom_gemm_quantized(meta, torch.empty(10, 3, device="meta"),
+                                      torch.empty(4, 3, device="meta"),
+                                      cfg, 1.0)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax_and_refuses_without_a_card(tmp_path):
+    script = os.path.join(ROOT, "chip_smoke.py")
+    roots = _imported_roots(script)
+    assert "repro_torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}
+    # No card here: it must fail and print no result line.
+    out = subprocess.run([sys.executable, script], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # Alone in a directory (without the repo) it must fail too.
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(script).read())
+    out = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
