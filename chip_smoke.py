@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero; nothing is caught or skipped):
 
-  1. build    — compile the TAOM GEMM kernel from ``src/repro_torch/kernels/
-                csrc/taom_gemm.cu`` with nvcc (sm_90a) and print the time;
+  1. build    — compile both kernels, ``src/repro_torch/kernels/csrc/
+                taom_gemm.cu`` and ``ssd_scan.cu``, with nvcc (sm_90a), the
+                two nvcc processes started together, and print the times;
   2. kernel   — hold the kernel against its plain PyTorch version on the
                 card: both policies (HEANA analog carry, AMW chunk-ADC),
                 noise on and off, bits 6 and 8, every resnet_mini GEMM of
@@ -28,7 +29,24 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 and under ``torch.profiler`` (the device's busy time by
                 kernel, its idle share, the TAOM kernel's time per
                 request);
-  4. report   — the kernels' JSON line, the card's name and power limit,
+  4. ssd      — hold the SSD-scan kernel against its plain PyTorch version
+                (``ops._ssd_chunked``) on the card within rtol 1e-4 and
+                atol 1e-4 * max|plain|: the mamba2-130m width (BH 96, L
+                1024, P 64, S 128, Q 128), the smoke config's (P 16, S 16,
+                Q 8), zamba2's (P 64, S 64) and a ragged L (1000) through
+                ``ops.ssd_scan``; then time kernel and plain version at the
+                full width (CUDA graph replay) beside the bound;
+  5. mamba    — serve mamba2-130m at its full width through
+                ``launch/serve.serve`` (24 layers, d_model 768, seeded
+                random bf16 weights, batch 4, prompt 1000, 16 greedy
+                tokens): tokens in range, the SSD kernel launched once per
+                layer in the prefill and never in decode; in a float32 copy
+                of the config the kernel's prefill and 4 decode steps agree
+                with the plain version's; a prefill under a HEANA photonic
+                ctx (6-bit, noise off) is bit-equal between the TAOM kernel
+                and its plain version; prefill/decode times on the host
+                clock and a profile of one prefill and one decode step;
+  6. report   — the kernels' JSON line, the card's name and power limit,
                 and the result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
@@ -39,6 +57,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -48,6 +67,13 @@ F32_FLOPS_PER_S = 67e12          # the same, f32 outside the tensor cores
 EXACT_LIMIT = 2.0 ** 24
 BATCH = 32                       # the bucket whose shapes phase 2 uses
 REQUESTS = 20                    # bucket-32 requests timed and profiled
+LM_ARCH = "mamba2-130m"          # phase 5's model, at its full width
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1000, 16
+SSD_TOL = 1e-4                   # rtol, and atol as a share of max|plain|
+# Phase 4's shapes (BH, L, P, S, Q): mamba2-130m at LM_BATCH (the shape
+# timed), the smoke config's, zamba2's head and state, and a ragged L.
+SSD_SHAPES = ((96, 1024, 64, 128, 128), (8, 64, 16, 16, 8),
+              (24, 512, 64, 64, 128), (96, 1000, 64, 128, 128))
 
 
 def log(msg: str) -> None:
@@ -107,43 +133,244 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def profile_requests(serve) -> dict:
-    """Serve ``REQUESTS`` requests under torch.profiler and split the
-    device's time: busy (sum of kernel times), idle share of the span from
-    the first kernel's start to the last one's end, and the TAOM kernel's
-    share."""
+def profile(fn, runs: int, kernel: str) -> dict:
+    """Run fn() ``runs`` times under torch.profiler and split the device's
+    time per run: busy (sum of kernel times), idle share of the span from
+    the first kernel's start to the last one's end, and the time and
+    launches of the kernels whose name holds ``kernel``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(REQUESTS):
-            serve()
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / REQUESTS * 1e3
+        wall_ms = (time.perf_counter() - t0) / runs * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert kernels, "the profiler saw no device activity"
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels) -
                min(e.time_range.start for e in kernels))
-    taom = [e for e in kernels if "taom_gemm" in e.name]
-    taom_us = sum(e.time_range.elapsed_us() for e in taom)
+    ours = [e for e in kernels if kernel in e.name]
+    ours_us = sum(e.time_range.elapsed_us() for e in ours)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "top_kernels_ms_per_request": [[name[:60], us / REQUESTS / 1e3]
-                                       for name, us in top],
-        "profiled_wall_ms_per_request": wall_ms,
-        "device_busy_ms_per_request": busy_us / REQUESTS / 1e3,
+        "top_kernels_ms_per_run": [[name[:60], us / runs / 1e3]
+                                   for name, us in top],
+        "profiled_wall_ms_per_run": wall_ms,
+        "device_busy_ms_per_run": busy_us / runs / 1e3,
         "device_idle_share": 1.0 - busy_us / span_us,
-        "device_kernels_per_request": len(kernels) / REQUESTS,
-        "taom_kernel_ms_per_request": taom_us / REQUESTS / 1e3,
-        "taom_launches_per_request": len(taom) / REQUESTS,
-        "taom_share_of_device_busy": taom_us / busy_us,
+        "device_kernels_per_run": len(kernels) / runs,
+        "kernel_ms_per_run": ours_us / runs / 1e3,
+        "kernel_launches_per_run": len(ours) / runs,
+        "kernel_share_of_device_busy": ours_us / busy_us,
     }
+
+
+def ssd_bound(bh: int, l: int, p: int, s: int, q: int) -> dict:
+    """Least time for one SSD scan: each input read once, each output
+    written once (bytes), and the chunked algorithm's float32 flops with
+    the scores and their product with x over the causal triangle s <= t
+    only (the rest is masked to 0), plus the inter-chunk product and the
+    carry."""
+    nbytes = 4 * bh * (l * (2 * p + 1 + 2 * s) + p * s)
+    tri = q * (q + 1) // 2
+    flops = bh * (l // q) * (2 * tri * (s + p) + 4 * q * p * s)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def ssd_phase(dev) -> dict:
+    """Phase 4: the SSD kernel against its plain version, then timed."""
+    import torch
+    from repro_torch.kernels import ops, ssd_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def inputs(bh, l, p, s):
+        x = torch.randn((bh, l, p), generator=gen, device=dev)
+        dt = torch.logaddexp(torch.randn((bh, l), generator=gen, device=dev),
+                             torch.zeros((), device=dev))
+        a = -torch.exp(torch.randn((bh,), generator=gen, device=dev))
+        b = torch.randn((bh, l, s), generator=gen, device=dev)
+        c = torch.randn((bh, l, s), generator=gen, device=dev)
+        return x, dt, a, b, c
+
+    max_err = 0.0
+    for bh, l, p, s, q in SSD_SHAPES:
+        args = inputs(bh, l, p, s)
+        got = ops.ssd_scan(*args, chunk=q, impl="kernel")
+        want = ops.ssd_scan(*args, chunk=q, impl="ref")
+        torch.cuda.synchronize()
+        for name, g, w in zip(("y", "state"), got, want):
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            ok = torch.allclose(g, w, rtol=SSD_TOL, atol=SSD_TOL * scale)
+            log(f"[ssd] BH={bh} L={l} P={p} S={s} Q={q} {name}: "
+                f"max |kernel - plain| = {err:.3e} (max |plain| "
+                f"{scale:.3e}; rtol {SSD_TOL}, atol {SSD_TOL} * max|plain|)")
+            assert ok, (bh, l, p, s, q, name, err, scale)
+            max_err = max(max_err, err)
+    bh, l, p, s, q = SSD_SHAPES[0]
+    args = inputs(bh, l, p, s)
+    kernel = lambda: ssd_scan.ssd_scan_chunked(*args, chunk=q)  # noqa: E731
+    plain = lambda: ops._ssd_chunked(*args, q)                  # noqa: E731
+    row = {"max_abs_err": max_err,
+           "ms": device_ms(kernel, iters=10, replays=5),
+           "plain_ms": device_ms(plain, iters=5, replays=4),
+           **ssd_bound(bh, l, p, s, q)}
+    log("[ssd] BH={} L={} P={} S={} Q={}: kernel_ms={ms:.5f} "
+        "plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; "
+        "bytes {bytes_ms:.5f}, operations {ops_ms:.5f}) per launch (device "
+        "times, CUDA graph replay); library_ms: none (no single PyTorch "
+        "call computes the scan)".format(bh, l, p, s, q, **row))
+    return row
+
+
+def lm_phase(dev) -> dict:
+    """Phase 5: mamba2-130m served at its full width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import Backend, PhotonicConfig
+    from repro_torch.kernels import ssd_scan, taom_gemm
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import PhotonicCtx
+
+    cfg = get_config(LM_ARCH)
+    seed = 0
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(5))
+
+    # The launch split: one SSD launch per layer in the prefill, none in
+    # decode.
+    params = zoo.init_params(cfg, seed, dev)
+    caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+    ssd_scan.LAUNCHES = 0
+    logits, state = zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg,
+                                   caches, ssm_impl="kernel")
+    torch.cuda.synchronize()
+    in_prefill = ssd_scan.LAUNCHES
+    tok = logits[:, -1].float().argmax(-1)[:, None]
+    for i in range(3):
+        assert bool(torch.isfinite(logits).all()), i
+        logits, state = zoo.decode_fn(params, tok, LM_PROMPT + i, cfg, state)
+        tok = logits[:, -1].float().argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert logits.shape == (LM_BATCH, 1, cfg.vocab_size), logits.shape
+    in_decode = ssd_scan.LAUNCHES - in_prefill
+    assert in_prefill == cfg.num_layers and in_decode == 0, (in_prefill,
+                                                             in_decode)
+    log(f"[mamba] SSD kernel launches: {in_prefill} in one prefill "
+        f"({cfg.num_layers} layers), {in_decode} in 3 decode steps; "
+        f"bf16 logits finite")
+
+    # float32 copy of the config: the kernel's prefill + 4 decode steps
+    # against the plain version's.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = zoo.init_params(cfg32, seed, dev)
+    runs = {}
+    for impl in ("kernel", "ref"):
+        caches = zoo.init_caches(cfg32, LM_BATCH, LM_PROMPT + 4, device=dev)
+        lg, st = zoo.prefill_fn(params32, {"tokens": prompts.to(dev)}, cfg32,
+                                caches, ssm_impl=impl)
+        outs = [(lg, st)]
+        tok = lg[:, -1].argmax(-1)[:, None]
+        for i in range(4):
+            lg, st = zoo.decode_fn(params32, tok, LM_PROMPT + i, cfg32, st)
+            outs.append((lg, st))
+            tok = lg[:, -1].argmax(-1)[:, None]
+        runs[impl] = outs
+    f32_err = 0.0
+    for step, ((lk, sk), (lr, sr)) in enumerate(zip(runs["kernel"],
+                                                    runs["ref"])):
+        pairs = [("logits", lk, lr)] + [
+            (key, sk["layers"]["mamba"][key], sr["layers"]["mamba"][key])
+            for key in ("conv", "ssm")]
+        for name, g, w in pairs:
+            assert bool(torch.isfinite(g).all()), (step, name)
+            rel = (g - w).abs().max().item() / w.abs().max().item()
+            f32_err = max(f32_err, rel)
+            assert rel <= SSD_TOL, (step, name, rel)
+    log(f"[mamba] float32 config, prefill + 4 decode steps: kernel vs "
+        f"plain SSD max |diff| / max |plain| = {f32_err:.3e} over logits "
+        f"and both caches (tolerance {SSD_TOL})")
+    del params32, runs
+
+    # Photonic ctx: the TAOM kernel on the LM's GEMMs (K up to d_inner).
+    pcfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                          noise_enabled=False)
+    k_max = cfg.ssm.expand * cfg.d_model
+    assert pcfg.qmax ** 2 * k_max < EXACT_LIMIT, (pcfg.qmax, k_max)
+    phot = {}
+    for impl in ("kernel", "ref"):
+        caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
+        taom_gemm.LAUNCHES = 0
+        phot[impl] = zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg,
+                                    caches,
+                                    ctx=PhotonicCtx(cfg=pcfg, impl=impl),
+                                    ssm_impl="kernel")
+        torch.cuda.synchronize()
+        want = 2 * cfg.num_layers if impl == "kernel" else 0
+        assert taom_gemm.LAUNCHES == want, (impl, taom_gemm.LAUNCHES)
+    (lk, sk), (lr, sr) = phot["kernel"], phot["ref"]
+    assert torch.equal(lk, lr), (lk.float() - lr.float()).abs().max().item()
+    for key in ("conv", "ssm"):
+        assert torch.equal(sk["layers"]["mamba"][key],
+                           sr["layers"]["mamba"][key]), key
+    log(f"[mamba] photonic ctx (HEANA, 6-bit, N=83, noise off) prefill of "
+        f"{tuple(prompts.shape)} tokens: bit-equal between the TAOM kernel "
+        f"({2 * cfg.num_layers} launches, K up to {k_max}, D up to "
+        f"{params['mamba']['stack']['mamba']['in_proj']['w'].shape[-1]}) "
+        f"and its plain version (|psum| <= {pcfg.qmax}^2 * {k_max} < 2^24)")
+
+    # Profile of one bf16 prefill (the served one, kernel SSD).
+    def prefill():
+        caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                                 device=dev)
+        zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg, caches,
+                       ssm_impl="kernel")
+
+    prefill()
+    split = profile(prefill, 3, "ssd_scan")
+    log("[mamba] one prefill under torch.profiler (3 runs): " +
+        json.dumps(split, sort_keys=True))
+    step = profile(lambda: zoo.decode_fn(params, tok, LM_PROMPT + 3, cfg,
+                                         state), 3, "ssd_scan")
+    log("[mamba] one decode step under torch.profiler (3 runs): " +
+        json.dumps(step, sort_keys=True))
+    del params
+
+    # The main path: serve() end to end; the warm-up call pays one-time
+    # costs (cuBLAS handles, allocator growth).
+    serve(LM_ARCH, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+          gen=LM_GEN, seed=seed, device=dev)
+    ssd_scan.LAUNCHES = taom_gemm.LAUNCHES = 0
+    res = serve(LM_ARCH, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                gen=LM_GEN, seed=seed, device=dev)
+    launches = ssd_scan.LAUNCHES
+    # Exact numerics: the TAOM kernel is not on this path.
+    assert launches == cfg.num_layers and taom_gemm.LAUNCHES == 0, (
+        launches, taom_gemm.LAUNCHES)
+    toks = res.tokens
+    assert toks.shape == (LM_BATCH, LM_PROMPT + LM_GEN), toks.shape
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    log(f"[mamba] serve({LM_ARCH}, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"gen {LM_GEN}): prefill {res.prefill_s * 1e3:.3f} ms, decode "
+        f"{res.decode_s * 1e3:.3f} ms for {LM_GEN - 1} steps "
+        f"({res.tokens_per_s:.1f} tokens/s), host clock, synchronized; "
+        f"{launches} SSD kernel launches")
+    return {"launches": launches, "profile": split}
 
 
 def main() -> int:
@@ -161,20 +388,26 @@ def main() -> int:
     from repro_torch.core.taom import quantize
     from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
     from repro_torch.exec import ServingEngine, execute_cnn
-    from repro_torch.kernels import ref, taom_gemm
+    from repro_torch.kernels import ref, ssd_scan, taom_gemm
     from repro_torch.models.zoo_cnn import ZOO
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # -- 1. build ------------------------------------------------------------
-    t0 = time.perf_counter()
-    lib, build_log = taom_gemm.build()
-    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    # -- 1. build: one nvcc per source, started together ----------------------
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        lib, build_log = mod.build()
+        return lib, build_log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = list(pool.map(timed_build, (taom_gemm, ssd_scan)))
+    for lib, build_log, secs in builds:
+        log(f"[build] {lib.name} in {secs:.1f} s")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {line.strip()}")
 
     # -- 2. kernel vs plain version on the card -------------------------------
     # The main path: the served engine's bucket-32 plan gives every GEMM's
@@ -278,11 +511,12 @@ def main() -> int:
     sizes = (1, 3, 17, 64, 100)
     requests = [torch.randn((n, *model.in_hw, model.in_ch), generator=img_gen,
                             device=dev) for n in sizes]
-    taom_gemm.LAUNCHES = 0
+    taom_gemm.LAUNCHES = ssd_scan.LAUNCHES = 0
     cold = engine.warmup()
     served = [engine.infer(x) for x in requests]
     torch.cuda.synchronize()
     launches = taom_gemm.LAUNCHES
+    assert ssd_scan.LAUNCHES == 0, ssd_scan.LAUNCHES
     stats = engine.stats()
     forwards = len(cold) + stats["batches"]
     assert launches == n_gemms * forwards, (launches, n_gemms, forwards)
@@ -328,16 +562,23 @@ def main() -> int:
         engine.infer(x32)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / REQUESTS * 1e3
-    split = profile_requests(lambda: engine.infer(x32))
+    split = profile(lambda: engine.infer(x32), REQUESTS, "taom_gemm")
     log(f"[serving] bucket-32 request, {REQUESTS} runs: {wall_ms:.4f} ms "
-        f"host clock unprofiled; " + json.dumps(split, sort_keys=True))
+        f"host clock unprofiled; per request under the profiler: " +
+        json.dumps(split, sort_keys=True))
     log(f"[serving] TAOM kernel per bucket-32 forward: "
-        f"{split['taom_kernel_ms_per_request']:.5f} ms on the path "
-        f"(profiler, {split['taom_launches_per_request']:g} launches) vs "
+        f"{split['kernel_ms_per_run']:.5f} ms on the path "
+        f"(profiler, {split['kernel_launches_per_run']:g} launches) vs "
         f"{sum(r['kernel_ms'] for r in rows):.5f} ms in phase 2 (CUDA "
         f"graph replay at the same shapes and tiles)")
 
-    # -- 4. report ------------------------------------------------------------
+    # -- 4. SSD kernel vs plain version on the card ---------------------------
+    ssd = ssd_phase(dev)
+
+    # -- 5. mamba2-130m served at full width: this slice's path -------------
+    lm = lm_phase(dev)
+
+    # -- 6. report ------------------------------------------------------------
     entry = {
         "name": "taom_gemm_quantized",
         "route": "cuda",
@@ -351,7 +592,7 @@ def main() -> int:
         # profiler's time of the same 13 launches inside served requests.
         "ms": sum(r["kernel_ms"] for r in rows),
         "call_ms": sum(r["kernel_call_ms"] for r in rows),
-        "path_ms": split["taom_kernel_ms_per_request"],
+        "path_ms": split["kernel_ms_per_run"],
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": ("bytes" if sum(r["bytes_ms"] for r in rows) >=
@@ -364,7 +605,30 @@ def main() -> int:
                        "single PyTorch call, not the same function",
         "per": "one resnet_mini forward at batch 32 (13 GEMMs)",
     }
-    print(json.dumps({"kernels": [entry]}))
+    bh, l, p, s, q = SSD_SHAPES[0]
+    ssd_entry = {
+        "name": "ssd_scan_chunked",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:81",
+        "launches": lm["launches"],
+        "max_abs_err": ssd["max_abs_err"],
+        # Per launch at the full-width shape, device time (CUDA graph
+        # replay); path_ms is the profiler's SSD time in one served prefill
+        # divided by its launches.
+        "ms": ssd["ms"],
+        "path_ms": (lm["profile"]["kernel_ms_per_run"] /
+                    lm["profile"]["kernel_launches_per_run"]),
+        "plain_ms": ssd["plain_ms"],
+        "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"],
+        # No single PyTorch call computes the SSD scan.
+        "library_ms": None,
+        "per": f"one launch at BH={bh}, L={l}, P={p}, S={s}, Q={q} (one "
+               f"{LM_ARCH} layer's prefill at batch {LM_BATCH}, prompt "
+               f"{LM_PROMPT} padded to {l})",
+    }
+    print(json.dumps({"kernels": [entry, ssd_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

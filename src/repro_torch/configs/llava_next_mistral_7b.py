@@ -1,0 +1,17 @@
+"""llava-next-mistral-7b [vlm]: 32L d_model=4096 32H (GQA kv=8)
+d_ff=14336 vocab=32000 — anyres tiling (patch embeddings STUB)
+[hf:llava-hf/llava-v1.6-mistral-7b-hf; unverified]."""
+from repro_torch.configs.base import ArchConfig, register
+
+FULL = ArchConfig(
+    name="llava-next-mistral-7b", family="vlm", num_layers=32,
+    d_model=4096, num_heads=32, num_kv_heads=8, d_ff=14336,
+    vocab_size=32000, head_dim=128, rope_theta=1e6,
+    num_image_tokens=2880, vision_embed_dim=1024)
+
+SMOKE = ArchConfig(
+    name="llava-next-mistral-7b", family="vlm", num_layers=2, d_model=64,
+    num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512,
+    head_dim=16, rope_theta=1e6, num_image_tokens=6, vision_embed_dim=32)
+
+register(FULL, SMOKE)

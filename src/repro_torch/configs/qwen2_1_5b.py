@@ -1,0 +1,15 @@
+"""qwen2-1.5b [dense]: 28L d_model=1536 12H (GQA kv=2) d_ff=8960
+vocab=151936 — GQA, QKV bias [arXiv:2407.10671; hf]."""
+from repro_torch.configs.base import ArchConfig, register
+
+FULL = ArchConfig(
+    name="qwen2-1.5b", family="dense", num_layers=28, d_model=1536,
+    num_heads=12, num_kv_heads=2, d_ff=8960, vocab_size=151936,
+    head_dim=128, qkv_bias=True, rope_theta=1e6, tie_embeddings=True, head_pad=16)
+
+SMOKE = ArchConfig(
+    name="qwen2-1.5b", family="dense", num_layers=2, d_model=96,
+    num_heads=4, num_kv_heads=2, d_ff=192, vocab_size=512,
+    head_dim=24, qkv_bias=True, rope_theta=1e6, tie_embeddings=True)
+
+register(FULL, SMOKE)

@@ -1,5 +1,8 @@
-"""``photonic_matmul``: quantize -> TAOM GEMM -> rescale, with an STE
-backward (counterpart of ``repro.kernels.ops.photonic_matmul``).
+"""Entry points around the port's kernels (counterpart of
+``repro.kernels.ops``): ``photonic_matmul`` and ``ssd_scan``.
+
+``photonic_matmul``: quantize -> TAOM GEMM -> rescale, with an STE
+backward.
 
 This is what the model zoo calls.  It folds leading dimensions into the
 GEMM's M axis, quantizes both operands, runs the chunked TAOM GEMM —
@@ -7,17 +10,25 @@ the Hopper kernel (``kernels/taom_gemm.py``) for CUDA tensors, the plain
 version (``kernels/ref.py``) for CPU tensors or when asked — and rescales.
 The backward is the straight-through estimator of the reference's
 ``custom_vjp``: gradients of an exact matmul, ``g @ w.T`` and ``x.T @ g``.
+
+``ssd_scan`` is the Mamba2 scan: the Hopper kernel
+(``kernels/ssd_scan.py``) for CUDA tensors, the plain chunked version
+``_ssd_chunked`` (the same decomposition as the reference's
+``_ssd_chunked_jax``, in float32) for CPU tensors or when asked.  ``ssd_decode_step`` is the
+one-token recurrence of serving (the reference has no kernel for it).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS, sample_noise
 from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, PhotonicConfig
 from repro_torch.kernels import ref as ref_mod
+from repro_torch.kernels import ssd_scan as ssd_kernel_mod
 from repro_torch.kernels import taom_gemm as taom_kernel_mod
 
 IMPLS = ("auto", "kernel", "ref")
@@ -102,3 +113,100 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
     out = _TaomSTE.apply(x2d, w, noise, cfg, float(adc_fs), impl,
                          (int(block_m), int(block_d)))
     return out.reshape(*batch_shape, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the SSD kernel: the chunked decomposition of the
+    reference's ``_ssd_chunked_jax`` in float32 (intra-chunk causal scores,
+    per-chunk states, a loop carrying the state across chunks, inter-chunk
+    term).  Shapes as ``kernels.ssd_scan.ssd_scan_chunked``; L must be a
+    multiple of ``chunk``."""
+    bh, l, p = x.shape
+    s = b.shape[-1]
+    n_chunks = l // chunk
+    f32 = torch.float32
+    xc = x.reshape(bh, n_chunks, chunk, p).to(f32)
+    dtc = dt.reshape(bh, n_chunks, chunk).to(f32)
+    bc = b.reshape(bh, n_chunks, chunk, s).to(f32)
+    cc = c.reshape(bh, n_chunks, chunk, s).to(f32)
+    a = a.to(f32)
+
+    da = dtc * a[:, None, None]                       # (BH, C, Q)
+    cum = torch.cumsum(da, dim=-1)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    # seg > 0 above the diagonal, where exp() may overflow: a select, not
+    # a multiply by the mask, keeps the inf out of the result.
+    seg = cum[..., :, None] - cum[..., None, :]       # (BH, C, Q, Q)
+    lmat = torch.where(causal, torch.exp(seg) * dtc[..., None, :], 0.0)
+    scores = torch.einsum("zkqs,zkts->zkqt", cc, bc) * lmat
+    y_intra = torch.einsum("zkqt,zktp->zkqp", scores, xc)
+
+    # Per-chunk state contribution and decay.
+    wgt = torch.exp(cum[..., -1:] - cum) * dtc        # (BH, C, Q)
+    chunk_states = torch.einsum("zkqp,zkqs->zkps", wgt[..., None] * xc, bc)
+    chunk_decay = torch.exp(cum[..., -1])             # (BH, C)
+
+    state = torch.zeros((bh, p, s), dtype=f32, device=x.device)
+    prev_states = []                                  # state *before* k
+    for k in range(n_chunks):
+        prev_states.append(state)
+        state = state * chunk_decay[:, k, None, None] + chunk_states[:, k]
+    prev = torch.stack(prev_states, dim=1)            # (BH, C, P, S)
+
+    y_inter = torch.einsum("zkqs,zkps->zkqp", cc, prev) * \
+        torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bh, l, p).to(x.dtype)
+    return y, state
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan over flattened (batch*head) sequences.
+
+    x: (BH, L, P); dt: (BH, L); a: (BH,); b, c: (BH, L, S).  Pads L with
+    zeros up to a chunk multiple (dt = 0 there: decay 1 and no update, so
+    the final state is unaffected) and slices y back.  impl: 'auto' (the
+    kernel for CUDA tensors, the plain version for CPU tensors) | 'kernel'
+    | 'ref', as in ``photonic_matmul``.
+    Returns (y: (BH, L, P), final_state: (BH, P, S) float32).
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    l = x.shape[1]
+    lpad = (-l) % chunk
+    if lpad:
+        x = F.pad(x, (0, 0, 0, lpad))
+        dt = F.pad(dt, (0, lpad))
+        b = F.pad(b, (0, 0, 0, lpad))
+        c = F.pad(c, (0, 0, 0, lpad))
+    if impl == "auto":
+        impl = "kernel" if x.is_cuda else "ref"
+    if impl == "kernel":
+        y, state = ssd_kernel_mod.ssd_scan_chunked(
+            x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
+            c.contiguous(), chunk=chunk)
+    else:
+        y, state = _ssd_chunked(x, dt, a, b, c, chunk)
+    return y[:, :l], state
+
+
+def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
+                    dt_t: torch.Tensor, a: torch.Tensor, b_t: torch.Tensor,
+                    c_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence for serving.
+
+    state: (BH, P, S); x_t: (BH, P); dt_t: (BH,); a: (BH,);
+    b_t, c_t: (BH, S).  Returns (y_t: (BH, P), new_state).
+    """
+    decay = torch.exp(dt_t * a)                        # (BH,)
+    upd = (dt_t[:, None] * x_t)[:, :, None] * b_t[:, None, :]
+    new_state = decay[:, None, None] * state + upd
+    y = torch.einsum("zps,zs->zp", new_state, c_t)
+    return y.to(x_t.dtype), new_state

@@ -8,11 +8,16 @@ calibrated ADC scale), chunks K at the exact dpe_size, and shares the
 kernel's ADC constants (``adc_round``).  The CPU tests run it against the
 reference package; ``chip_smoke.py`` holds the CUDA kernel against it on
 the card.
+
+``ssd_scan_reference`` is the naive per-token Mamba2 recurrence
+(counterpart of ``repro.kernels.ref.ssd_scan_reference``): the oracle the
+chunked plain version ``ops._ssd_chunked`` and the SSD kernel are checked
+against.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,3 +65,35 @@ def taom_gemm_reference(xq: torch.Tensor, wq: torch.Tensor,
             raise ValueError(f"noise {tuple(noise.shape)} != {(m, d)}")
         acc = acc + sigma * math.sqrt(float(n_chunks)) * noise
     return adc_round(acc, cfg.adc_bits, float(adc_fs))
+
+
+def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor,
+                       initial_state: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential Mamba2/SSD recurrence — oracle for kernels.ssd_scan.
+
+    Shapes (single batch element):
+      x:  (L, H, P)   input per head (P = head dim)
+      dt: (L, H)      softplus-activated step sizes (>0)
+      a:  (H,)        negative state decay rate (A = -exp(a_log) outside)
+      b:  (L, G, S)   input->state projection (G state groups, S state dim)
+      c:  (L, G, S)   state->output projection
+    Heads are grouped: head h uses group g = h // (H // G).
+    Returns (y: (L, H, P), final_state: (H, P, S)).
+    """
+    l, h, p = x.shape
+    g, s = b.shape[1], b.shape[2]
+    heads_per_group = h // g
+    state = (torch.zeros((h, p, s), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.to(torch.float32))
+    ys = []
+    for t in range(l):
+        dt_t = dt[t]                                       # (H,)
+        decay = torch.exp(dt_t * a)                        # (H,)  a < 0
+        b_h = b[t].repeat_interleave(heads_per_group, 0)   # (H, S)
+        c_h = c[t].repeat_interleave(heads_per_group, 0)   # (H, S)
+        upd = (dt_t[:, None] * x[t])[:, :, None] * b_h[:, None, :]
+        state = decay[:, None, None] * state + upd
+        ys.append(torch.einsum("hps,hs->hp", state, c_h))
+    return torch.stack(ys).to(x.dtype), state

@@ -3,8 +3,8 @@
 Replaces the TPU kernel ``repro.kernels.taom_gemm.taom_gemm_quantized``
 (Pallas bodies ``_kernel_analog_carry`` and ``_kernel_chunk_adc``) with a
 CUDA C++ kernel for sm_90a, ``csrc/taom_gemm.cu``, built with ``nvcc`` at
-first use into ``kernels/_build/`` and bound through a plain C entry point
-loaded with ``ctypes``.
+first use into ``kernels/_build/`` (``kernels/nvcc.py``) and bound through
+a plain C entry point loaded with ``ctypes``.
 
 What it computes: an (M, K) @ (K, D) product of integer-valued float32
 operands, with K split into C = ceil(K / N) chunks of N = ``dpe_size``
@@ -37,11 +37,7 @@ On a CPU tensor the wrapper runs the plain PyTorch version
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional, Tuple
@@ -50,15 +46,14 @@ import torch
 
 from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS, detection_sigma
 from repro_torch.core.types import PhotonicConfig
+from repro_torch.kernels import nvcc
 
 # The reference kernel's lane/sublane rounding: the scheduler's tile
 # search uses these so plans equal the reference's field for field.
 LANE = 128
 SUBLANE = 8
 
-_HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "taom_gemm.cu"
-BUILD_DIR = _HERE / "_build"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "taom_gemm.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
               "-fPIC")
@@ -117,37 +112,9 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the TAOM kernel is built from "
-                       "source at first use")
-
-
 def build() -> Tuple[Path, str]:
-    """Compile ``csrc/taom_gemm.cu`` (once per source and flag set).
-    Returns the shared library's path and what nvcc printed (its ptxas
-    report; empty when the library was already built)."""
-    tag = hashlib.sha256(SOURCE.read_bytes() +
-                         " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libtaom_gemm_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-    os.replace(tmp, lib)
-    return lib, log
+    """Compile ``csrc/taom_gemm.cu`` (see ``kernels/nvcc.py``)."""
+    return nvcc.build(SOURCE, NVCC_FLAGS)
 
 
 def _library():

@@ -1,0 +1,114 @@
+"""Serving entry point: batched prefill + decode with caches (counterpart of
+``repro.launch.serve``).
+
+Builds a request batch of seeded random prompts, prefills, then decodes N
+tokens per request (greedy, or sampled at a temperature).  Prefill runs
+the SSD scan through ``ssm_impl``; its default 'auto' is the Hopper kernel
+(``kernels/ssd_scan.py``) on the card, as the reference's ssm module
+documents its serving path, and the plain version on the CPU.  The
+reference's ``serve()`` itself leaves ``prefill_fn`` at its jnp default.
+Both impls compute one function (the tests hold them together).  Runs on
+the CUDA card unless ``device`` names another device.
+
+``tokens_per_s`` is the decode rate: the ``gen - 1`` tokens per request
+that decode steps make, over the decode time (the first token comes from
+the prefill; the reference counts ``gen``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.photonic_gemm import fold_seed
+from repro_torch.core.types import resolve_device
+from repro_torch.models import model_zoo as zoo
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # (B, prompt+gen), int64, on the CPU
+    prefill_s: float
+    decode_s: float
+    tokens_per_s: float           # decode steps' tokens / decode_s
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(arch: str, smoke: bool = True, batch: int = 4,
+          prompt_len: int = 32, gen: int = 16, seed: int = 0,
+          greedy: bool = True, temperature: float = 1.0,
+          ssm_impl: str = "auto", device=None) -> ServeResult:
+    if gen < 1 or prompt_len < 1 or batch < 1:
+        raise ValueError("batch, prompt_len and gen must be >= 1")
+    device = resolve_device(device)
+    cfg = get_config(arch, smoke=smoke)
+    params = zoo.init_params(cfg, seed, device)
+    max_len = prompt_len + gen
+    caches = zoo.init_caches(cfg, batch, max_len, getattr(torch, cfg.dtype),
+                             device)
+    prompts = torch.randint(
+        0, cfg.vocab_size, (batch, prompt_len),
+        generator=torch.Generator().manual_seed(fold_seed(seed, 1)))
+    sampler = None
+    if not greedy:
+        sampler = torch.Generator(device=device)
+        sampler.manual_seed(fold_seed(seed, 100))
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state = zoo.prefill_fn(params, {"tokens": prompts.to(device)},
+                                   cfg, caches, ssm_impl=ssm_impl)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    def pick(logits: torch.Tensor) -> torch.Tensor:
+        last = logits[:, -1].to(torch.float32)
+        if greedy:
+            return torch.argmax(last, -1)[:, None]
+        probs = torch.softmax(last / temperature, -1)
+        return torch.multinomial(probs, 1, generator=sampler)
+
+    tok = pick(logits)
+    out = [tok]
+    t1 = time.perf_counter()
+    for i in range(gen - 1):
+        logits, state = zoo.decode_fn(params, tok, prompt_len + i, cfg,
+                                      state)
+        tok = pick(logits)
+        out.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t1
+    seq = torch.cat([prompts] + [t.cpu() for t in out], dim=1)
+    return ServeResult(seq, t_prefill, t_decode,
+                       batch * (gen - 1) / max(t_decode, 1e-9))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--ssm-impl", default="auto")
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args()
+    r = serve(args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
+              ssm_impl=args.ssm_impl, device=args.device)
+    print(f"prefill {r.prefill_s*1e3:.1f} ms, decode {r.decode_s*1e3:.1f} ms"
+          f" ({r.tokens_per_s:.1f} tok/s), output shape "
+          f"{tuple(r.tokens.shape)}")
+
+
+if __name__ == "__main__":
+    main()

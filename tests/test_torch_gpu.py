@@ -3,19 +3,25 @@ elsewhere).  Run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-They hold the CUDA kernel against its plain PyTorch version on the card,
-bit for bit where the integer psums stay below 2^24 (asserted), and run
-the zoo networks end to end through the kernel.  They import no JAX.
+They hold the CUDA kernels against their plain PyTorch versions on the
+card — the TAOM GEMM bit for bit where the integer psums stay below 2^24
+(asserted), the SSD scan within rtol 1e-4 and atol 1e-4 * max|plain| (its
+sums run in another order) — and run the zoo networks and a mamba2
+prefill end to end through the kernels.  They import no JAX.
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import perf_model as pm
 from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
 from repro_torch.exec import PlanCache, execute_cnn, plan_for_network
-from repro_torch.kernels import ref, taom_gemm
+from repro_torch.kernels import ops, ref, ssd_scan, taom_gemm
 from repro_torch.models import lowering as lw
+from repro_torch.models import model_zoo as zoo
 from repro_torch.models.zoo_cnn import ZOO
 
 pytestmark = pytest.mark.gpu
@@ -91,3 +97,75 @@ def test_zoo_kernel_path_equals_plain_path_on_card(cuda, name):
     exact = lw.graph_apply(params, x, model.graph)
     direct = lw.direct_forward(params, x, model.graph)
     torch.testing.assert_close(exact, direct, rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(cuda, bh, l, p, s, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(bh, l, p, generator=gen, device=cuda)
+    dt = torch.logaddexp(torch.randn(bh, l, generator=gen, device=cuda),
+                         torch.zeros((), device=cuda))
+    a = -torch.exp(torch.randn(bh, generator=gen, device=cuda))
+    b = torch.randn(bh, l, s, generator=gen, device=cuda)
+    c = torch.randn(bh, l, s, generator=gen, device=cuda)
+    return x, dt, a, b, c
+
+
+def _ssd_close(got, want):
+    return torch.allclose(got, want, rtol=1e-4,
+                          atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("bh,l,p,s,chunk", [
+    (96, 1024, 64, 128, 128),     # mamba2-130m, batch 4
+    (8, 64, 16, 16, 8),           # the smoke config
+    (24, 512, 64, 64, 128),       # zamba2's head and state
+    (8, 1000, 64, 128, 128),      # ragged L through ops.ssd_scan
+    (3, 40, 16, 24, 16), (2, 33, 8, 8, 16)])
+def test_ssd_kernel_matches_plain_on_card(cuda, bh, l, p, s, chunk):
+    x, dt, a, b, c = _ssd_inputs(cuda, bh, l, p, s, seed=l + p)
+    before = ssd_scan.LAUNCHES
+    y, st = ops.ssd_scan(x, dt, a, b, c, chunk=chunk, impl="kernel")
+    assert ssd_scan.LAUNCHES == before + 1
+    want_y, want_st = ops.ssd_scan(x, dt, a, b, c, chunk=chunk, impl="ref")
+    torch.cuda.synchronize()
+    assert y.shape == (bh, l, p) and st.shape == (bh, p, s)
+    assert _ssd_close(y, want_y) and _ssd_close(st, want_st)
+
+
+def test_ssd_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
+    x, dt, a, b, c = _ssd_inputs(cuda, 2, 16, 8, 8, seed=0)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_scan_chunked(x.double(), dt, a, b, c, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan_chunked(x.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), dt, a, b, c, chunk=8)
+    for width in (132, 6):
+        bad = torch.zeros(2, 16, width, device=cuda)
+        with pytest.raises(ValueError, match="S <= 128 a multiple of 4"):
+            ssd_scan.ssd_scan_chunked(x, dt, a, bad, bad, chunk=8)
+    shifted = torch.zeros(2 * 16 * 8 + 1, device=cuda)[1:].view(2, 16, 8)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        ssd_scan.ssd_scan_chunked(x, dt, a, shifted, c, chunk=8)
+
+
+def test_mamba_prefill_through_the_kernel_on_card(cuda):
+    cfg = dataclasses.replace(get_config("mamba2-130m", smoke=True),
+                              dtype="float32")
+    params = zoo.init_params(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for impl in ("auto", "kernel", "ref"):     # 'auto' is the default
+        caches = zoo.init_caches(cfg, 2, 21, device=cuda)
+        kwargs = {} if impl == "auto" else {"ssm_impl": impl}
+        before = ssd_scan.LAUNCHES
+        out[impl] = zoo.prefill_fn(params, {"tokens": tokens.to(cuda)}, cfg,
+                                   caches, **kwargs)
+        launched = ssd_scan.LAUNCHES - before
+        assert launched == (0 if impl == "ref" else cfg.num_layers)
+    (lk, sk), (lr, sr) = out["kernel"], out["ref"]
+    assert torch.equal(out["auto"][0], lk)
+    assert _ssd_close(lk, lr)
+    for key in ("conv", "ssm"):
+        assert _ssd_close(sk["layers"]["mamba"][key],
+                          sr["layers"]["mamba"][key])

@@ -35,13 +35,14 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-from repro_torch.kernels import taom_gemm
+from repro_torch.kernels import ssd_scan, taom_gemm
 print(json.dumps({
     "modules": names,
     "foreign": sorted(k for k in sys.modules
                       if k.split(".")[0] in ("jax", "jaxlib", "repro")),
     "processes": calls,
     "library_loaded": taom_gemm._LIB is not None,
+    "ssd_library_loaded": ssd_scan._LIB is not None,
 }))
 """
 
@@ -54,9 +55,15 @@ def test_import_loads_no_jax_no_reference_and_builds_nothing():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.kernels.taom_gemm" in report["modules"]
     assert "repro_torch.exec.serving" in report["modules"]
+    for name in ("configs", "configs.base", "configs.mamba2_130m",
+                 "models.layers", "models.ssm", "models.transformer",
+                 "models.model_zoo", "launch.serve", "kernels.ssd_scan",
+                 "kernels.nvcc"):
+        assert f"repro_torch.{name}" in report["modules"], name
     assert report["foreign"] == []
     assert report["processes"] == []
     assert report["library_loaded"] is False
+    assert report["ssd_library_loaded"] is False
 
 
 @pytest.fixture
