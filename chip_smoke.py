@@ -5,9 +5,10 @@
 
 Phases (any failure exits non-zero; nothing is caught or skipped):
 
-  1. build    — compile both kernels, ``src/repro_torch/kernels/csrc/
-                taom_gemm.cu`` and ``ssd_scan.cu``, with nvcc (sm_90a), the
-                two nvcc processes started together, and print the times;
+  1. build    — compile the three kernels, ``src/repro_torch/kernels/
+                csrc/taom_gemm.cu``, ``ssd_scan.cu`` and
+                ``flash_attention.cu``, with nvcc (sm_90a), the three nvcc
+                processes started together, and print the times;
   2. kernel   — hold the kernel against its plain PyTorch version on the
                 card: both policies (HEANA analog carry, AMW chunk-ADC),
                 noise on and off, bits 6 and 8, every resnet_mini GEMM of
@@ -46,13 +47,36 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 ctx (6-bit, noise off) is bit-equal between the TAOM kernel
                 and its plain version; prefill/decode times on the host
                 clock and a profile of one prefill and one decode step;
-  6. report   — the kernels' JSON line, the card's name and power limit,
+  6. flash    — hold the flash-attention kernel against its plain PyTorch
+                version (``ops._flash_blocked``) on the card: qwen2-0.5b's
+                served shape (BH 64 = batch 4 x 16 padded heads, S 1000, D
+                64, causal) in bf16 and float32, h2o-danube3's head (D 120,
+                window 4096, S 5000), gemma3's (D 240, window 1024, S
+                2048), a non-causal shape (S 1500, D 64) and a tiny ragged
+                one (S 37, D 16); float32 within rtol 1e-5 and atol 1e-5 *
+                max|plain|, bf16 within one bf16 ulp of max|plain|'s
+                binade; then time kernel, plain version and PyTorch's
+                scaled_dot_product_attention (the yardstick; the port never
+                calls it) at qwen2's shape (CUDA graph replay) beside the
+                bound;
+  7. qwen2    — serve qwen2-0.5b at its full width through
+                ``launch/serve.serve`` (24 layers, d_model 896, 14 of 16
+                padded heads, GQA over 2 KV heads, QKV bias, seeded random
+                bf16 weights, batch 4, prompt 1000, 16 greedy tokens):
+                tokens in range, the flash kernel launched once per layer
+                in the prefill and never in decode; in a float32 copy of
+                the config the kernel's prefill and 4 decode steps agree
+                with the plain version's (logits and KV caches within 1e-4
+                of max|plain|); prefill/decode times on the host clock and
+                a profile of one prefill and one decode step;
+  8. report   — the kernels' JSON line, the card's name and power limit,
                 and the result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
 imports neither JAX nor the reference package.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -64,6 +88,7 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # the same, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # the same, bf16 dense on the tensor cores
 EXACT_LIMIT = 2.0 ** 24
 BATCH = 32                       # the bucket whose shapes phase 2 uses
 REQUESTS = 20                    # bucket-32 requests timed and profiled
@@ -74,6 +99,20 @@ SSD_TOL = 1e-4                   # rtol, and atol as a share of max|plain|
 # timed), the smoke config's, zamba2's head and state, and a ragged L.
 SSD_SHAPES = ((96, 1024, 64, 128, 128), (8, 64, 16, 16, 8),
               (24, 512, 64, 64, 128), (96, 1000, 64, 128, 128))
+QWEN_ARCH = "qwen2-0.5b"         # phase 7's model, at its full width
+FLASH_TOL = 1e-5                 # float32: rtol, and atol * max|plain|
+# Phase 6's shapes (BH, S, D, causal, window, dtype): qwen2-0.5b's served
+# prefill (batch 4 x 16 padded heads; the shape timed) in both dtypes,
+# h2o-danube3's and gemma3's heads with their windows, a non-causal shape
+# and a tiny ragged one.
+FLASH_SHAPES = ((64, 1000, 64, True, 0, "bfloat16"),
+                (64, 1000, 64, True, 0, "float32"),
+                (4, 5000, 120, True, 4096, "bfloat16"),
+                (4, 2048, 240, True, 1024, "bfloat16"),
+                (4, 2048, 240, True, 1024, "float32"),
+                (8, 1500, 64, False, 0, "float32"),
+                (3, 37, 16, True, 0, "float32"),
+                (3, 37, 16, True, 0, "bfloat16"))
 
 
 def log(msg: str) -> None:
@@ -373,6 +412,220 @@ def lm_phase(dev) -> dict:
     return {"launches": launches, "profile": split}
 
 
+def flash_bound(bh: int, s: int, d: int, causal: bool, window: int,
+                elt_bytes: int) -> dict:
+    """Least time for one flash-attention call: q, k, v read once and o
+    written once (bytes); and 4 D flops per (query, key) pair the mask
+    lets through (Q K^T and P V; masked pairs need no work), over the
+    card's rate for the inputs' type: bf16 on the tensor cores, float32
+    on the CUDA cores.  ``f32_floor_ms`` is the same flops at the float32
+    CUDA-core rate, the least time for a kernel that computes in float32
+    there, as this one does."""
+    pairs = sum((qi + 1 if causal else s) -
+                (max(0, qi - window + 1) if window else 0)
+                for qi in range(s))
+    flops = 4.0 * bh * d * pairs
+    bytes_ms = 4.0 * bh * s * d * elt_bytes / HBM_BYTES_PER_S * 1e3
+    rate = BF16_FLOPS_PER_S if elt_bytes == 2 else F32_FLOPS_PER_S
+    ops_ms = flops / rate * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "f32_floor_ms": flops / F32_FLOPS_PER_S * 1e3,
+            "gflop": flops / 1e9, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp in the binade of x (> 0): 2^(floor(log2 x) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def flash_phase(dev) -> dict:
+    """Phase 6: the flash-attention kernel against its plain version, then
+    timed beside its bound and PyTorch's SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ops
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+
+    def inputs(bh, s, d, dtype):
+        return [torch.randn((bh, s, d), generator=gen, device=dev)
+                .to(getattr(torch, dtype)) for _ in range(3)]
+
+    max_err = 0.0
+    for bh, s, d, causal, window, dtype in FLASH_SHAPES:
+        q, k, v = inputs(bh, s, d, dtype)
+        before = flash_attention.LAUNCHES
+        got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="kernel")
+        want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   impl="ref")
+        torch.cuda.synchronize()
+        assert flash_attention.LAUNCHES == before + 1
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got).all())
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        if dtype == "float32":
+            tol = f"rtol {FLASH_TOL}, atol {FLASH_TOL} * max|plain|"
+            ok = torch.allclose(got, want, rtol=FLASH_TOL,
+                                atol=FLASH_TOL * scale)
+        else:
+            tol = f"one bf16 ulp of max|plain| = {bf16_ulp(scale):.3e}"
+            ok = err <= bf16_ulp(scale)
+        log(f"[flash] BH={bh} S={s} D={d} causal={causal} window={window} "
+            f"{dtype}: max |kernel - plain| = {err:.3e} (max |plain| "
+            f"{scale:.3e}; {tol})")
+        assert ok, (bh, s, d, causal, window, dtype, err, scale)
+        max_err = max(max_err, err)
+
+    bh, s, d, causal, window, dtype = FLASH_SHAPES[0]
+    q, k, v = inputs(bh, s, d, dtype)
+    kernel = lambda: flash_attention.flash_attention_fwd(  # noqa: E731
+        q, k, v, causal=causal)
+    plain = lambda: ops._flash_blocked(q, k, v, causal)     # noqa: E731
+    # SDPA on the same tensors viewed as (batch, heads, S, D), the layout
+    # its fused kernels take (3-D input sends it to its unfused path).
+    q4, k4, v4 = (t.view(LM_BATCH, bh // LM_BATCH, s, d) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(          # noqa: E731
+        q4, k4, v4, is_causal=True)
+    lib_err = (sdpa().reshape(bh, s, d).float() -
+               plain().float()).abs().max().item()
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    kernel32 = lambda: flash_attention.flash_attention_fwd(  # noqa: E731
+        q32, k32, v32, causal=causal)
+    row = {"max_abs_err": max_err,
+           "ms": device_ms(kernel, iters=20, replays=5),
+           "plain_ms": device_ms(plain, iters=5, replays=4),
+           "library_ms": device_ms(sdpa, iters=20, replays=5),
+           "f32_ms": device_ms(kernel32, iters=10, replays=5),
+           **flash_bound(bh, s, d, causal, window, 2)}
+    log("[flash] BH={} S={} D={} causal bf16: kernel_ms={ms:.5f} "
+        "plain_ms={plain_ms:.5f} library_ms(scaled_dot_product_attention)="
+        "{library_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; bytes "
+        "{bytes_ms:.5f}, bf16 tensor-core operations {ops_ms:.5f}, float32 "
+        "CUDA-core floor {f32_floor_ms:.5f}, {gflop:.3f} GFLOP) per launch; "
+        "float32 kernel_ms={f32_ms:.5f} (device times, CUDA graph replay)"
+        .format(bh, s, d, **row))
+    log(f"[flash] SDPA vs plain at that shape: max |diff| = {lib_err:.3e}")
+    return row
+
+
+def qwen_phase(dev) -> dict:
+    """Phase 7: qwen2-0.5b served at its full width."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan, taom_gemm
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model_zoo as zoo
+
+    cfg = get_config(QWEN_ARCH)
+    seed = 0
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(7))
+
+    def counts():
+        return (flash_attention.LAUNCHES, ssd_scan.LAUNCHES,
+                taom_gemm.LAUNCHES)
+
+    # The launch split: one flash launch per layer in the prefill (the
+    # default attn_impl, 'auto'), none in decode.
+    params = zoo.init_params(cfg, seed, dev)
+    caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                             torch.bfloat16, dev)
+    flash_attention.LAUNCHES = ssd_scan.LAUNCHES = taom_gemm.LAUNCHES = 0
+    logits, state = zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg,
+                                   caches)
+    torch.cuda.synchronize()
+    in_prefill = counts()
+    tok = logits[:, -1].float().argmax(-1)[:, None]
+    for i in range(3):
+        assert bool(torch.isfinite(logits).all()), i
+        logits, state = zoo.decode_fn(params, tok, LM_PROMPT + i, cfg, state)
+        tok = logits[:, -1].float().argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(logits).all())
+    assert logits.shape == (LM_BATCH, 1, cfg.vocab_size), logits.shape
+    in_decode = tuple(b - a for a, b in zip(in_prefill, counts()))
+    assert in_prefill == (cfg.num_layers, 0, 0) and in_decode == (0, 0, 0), (
+        in_prefill, in_decode)
+    log(f"[qwen2] flash kernel launches: {in_prefill[0]} in one prefill "
+        f"({cfg.num_layers} layers), {in_decode[0]} in 3 decode steps; "
+        f"bf16 logits finite")
+
+    # float32 copy of the config: the kernel's prefill + 4 decode steps
+    # against the plain version's.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = zoo.init_params(cfg32, seed, dev)
+    runs = {}
+    for impl in ("kernel", "ref"):
+        caches = zoo.init_caches(cfg32, LM_BATCH, LM_PROMPT + 4,
+                                 torch.float32, dev)
+        lg, st = zoo.prefill_fn(params32, {"tokens": prompts.to(dev)}, cfg32,
+                                caches, attn_impl=impl)
+        outs = [(lg, st)]
+        tok = lg[:, -1].argmax(-1)[:, None]
+        for i in range(4):
+            lg, st = zoo.decode_fn(params32, tok, LM_PROMPT + i, cfg32, st)
+            outs.append((lg, st))
+            tok = lg[:, -1].argmax(-1)[:, None]
+        runs[impl] = outs
+    f32_err = 0.0
+    for step, ((lk, sk), (lr, sr)) in enumerate(zip(runs["kernel"],
+                                                    runs["ref"])):
+        body_k, body_r = sk["layers"]["body"], sr["layers"]["body"]
+        assert torch.equal(body_k["pos"], body_r["pos"]), step
+        for name, g, w in (("logits", lk, lr), ("k", body_k["k"], body_r["k"]),
+                           ("v", body_k["v"], body_r["v"])):
+            assert bool(torch.isfinite(g).all()), (step, name)
+            rel = (g - w).abs().max().item() / w.abs().max().item()
+            f32_err = max(f32_err, rel)
+            assert rel <= SSD_TOL, (step, name, rel)
+    log(f"[qwen2] float32 config, prefill + 4 decode steps: kernel vs "
+        f"plain flash attention max |diff| / max |plain| = {f32_err:.3e} "
+        f"over logits and the KV caches (tolerance {SSD_TOL})")
+    del params32, runs
+
+    # Profile of one bf16 prefill (the served one) and one decode step.
+    def prefill():
+        caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT + LM_GEN,
+                                 torch.bfloat16, dev)
+        zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg, caches)
+
+    prefill()
+    split = profile(prefill, 3, "flash_attention_fwd_kernel")
+    log("[qwen2] one prefill under torch.profiler (3 runs): " +
+        json.dumps(split, sort_keys=True))
+    step = profile(lambda: zoo.decode_fn(params, tok, LM_PROMPT + 3, cfg,
+                                         state), 3,
+                   "flash_attention_fwd_kernel")
+    log("[qwen2] one decode step under torch.profiler (3 runs): " +
+        json.dumps(step, sort_keys=True))
+    del params, state
+
+    # The main path: serve() end to end; the warm-up call pays one-time
+    # costs (cuBLAS handles, allocator growth).
+    serve(QWEN_ARCH, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+          gen=LM_GEN, seed=seed, device=dev)
+    flash_attention.LAUNCHES = ssd_scan.LAUNCHES = taom_gemm.LAUNCHES = 0
+    res = serve(QWEN_ARCH, smoke=False, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                gen=LM_GEN, seed=seed, device=dev)
+    launches = counts()
+    # Exact numerics, attention only: neither the TAOM nor the SSD kernel
+    # is on this path.
+    assert launches == (cfg.num_layers, 0, 0), launches
+    toks = res.tokens
+    assert toks.shape == (LM_BATCH, LM_PROMPT + LM_GEN), toks.shape
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    log(f"[qwen2] serve({QWEN_ARCH}, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"gen {LM_GEN}): prefill {res.prefill_s * 1e3:.3f} ms, decode "
+        f"{res.decode_s * 1e3:.3f} ms for {LM_GEN - 1} steps "
+        f"({res.tokens_per_s:.1f} tokens/s), host clock, synchronized; "
+        f"{launches[0]} flash kernel launches")
+    return {"launches": launches[0], "profile": split}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script — run "
@@ -388,7 +641,7 @@ def main() -> int:
     from repro_torch.core.taom import quantize
     from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
     from repro_torch.exec import ServingEngine, execute_cnn
-    from repro_torch.kernels import ref, ssd_scan, taom_gemm
+    from repro_torch.kernels import flash_attention, ref, ssd_scan, taom_gemm
     from repro_torch.models.zoo_cnn import ZOO
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -401,8 +654,9 @@ def main() -> int:
         lib, build_log = mod.build()
         return lib, build_log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = list(pool.map(timed_build, (taom_gemm, ssd_scan)))
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = list(pool.map(timed_build,
+                               (taom_gemm, ssd_scan, flash_attention)))
     for lib, build_log, secs in builds:
         log(f"[build] {lib.name} in {secs:.1f} s")
         for line in build_log.splitlines():
@@ -511,12 +765,13 @@ def main() -> int:
     sizes = (1, 3, 17, 64, 100)
     requests = [torch.randn((n, *model.in_hw, model.in_ch), generator=img_gen,
                             device=dev) for n in sizes]
-    taom_gemm.LAUNCHES = ssd_scan.LAUNCHES = 0
+    taom_gemm.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
     cold = engine.warmup()
     served = [engine.infer(x) for x in requests]
     torch.cuda.synchronize()
     launches = taom_gemm.LAUNCHES
-    assert ssd_scan.LAUNCHES == 0, ssd_scan.LAUNCHES
+    assert ssd_scan.LAUNCHES == flash_attention.LAUNCHES == 0, (
+        ssd_scan.LAUNCHES, flash_attention.LAUNCHES)
     stats = engine.stats()
     forwards = len(cold) + stats["batches"]
     assert launches == n_gemms * forwards, (launches, n_gemms, forwards)
@@ -575,10 +830,16 @@ def main() -> int:
     # -- 4. SSD kernel vs plain version on the card ---------------------------
     ssd = ssd_phase(dev)
 
-    # -- 5. mamba2-130m served at full width: this slice's path -------------
+    # -- 5. mamba2-130m served at full width ----------------------------------
     lm = lm_phase(dev)
 
-    # -- 6. report ------------------------------------------------------------
+    # -- 6. flash-attention kernel vs plain version on the card ---------------
+    flash = flash_phase(dev)
+
+    # -- 7. qwen2-0.5b served at full width: this slice's path ---------------
+    qwen = qwen_phase(dev)
+
+    # -- 8. report ------------------------------------------------------------
     entry = {
         "name": "taom_gemm_quantized",
         "route": "cuda",
@@ -628,7 +889,33 @@ def main() -> int:
                f"{LM_ARCH} layer's prefill at batch {LM_BATCH}, prompt "
                f"{LM_PROMPT} padded to {l})",
     }
-    print(json.dumps({"kernels": [entry, ssd_entry]}))
+    bh, s, d, causal, window, dtype = FLASH_SHAPES[0]
+    flash_entry = {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:75",
+        "launches": qwen["launches"],
+        "max_abs_err": flash["max_abs_err"],
+        # Per launch at qwen2-0.5b's served shape in bf16, device time
+        # (CUDA graph replay); path_ms is the profiler's flash time in one
+        # served prefill divided by its launches; library_ms is PyTorch's
+        # scaled_dot_product_attention on the same tensors (never called
+        # by the port).
+        "ms": flash["ms"],
+        "path_ms": (qwen["profile"]["kernel_ms_per_run"] /
+                    qwen["profile"]["kernel_launches_per_run"]),
+        "plain_ms": flash["plain_ms"],
+        "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"],
+        "library_ms": flash["library_ms"],
+        "f32_floor_ms": flash["f32_floor_ms"],
+        "float32_ms": flash["f32_ms"],
+        "per": f"one launch at BH={bh} ({LM_BATCH} x 16 padded heads), "
+               f"S={s}, D={d}, causal, {dtype} (one {QWEN_ARCH} layer's "
+               f"prefill at batch {LM_BATCH}, prompt {LM_PROMPT})",
+    }
+    print(json.dumps({"kernels": [entry, ssd_entry, flash_entry]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Entry points around the port's kernels (counterpart of
-``repro.kernels.ops``): ``photonic_matmul`` and ``ssd_scan``.
+``repro.kernels.ops``): ``photonic_matmul``, ``ssd_scan`` and
+``flash_attention``.
 
 ``photonic_matmul``: quantize -> TAOM GEMM -> rescale, with an STE
 backward.
@@ -16,6 +17,12 @@ The backward is the straight-through estimator of the reference's
 ``_ssd_chunked`` (the same decomposition as the reference's
 ``_ssd_chunked_jax``, in float32) for CPU tensors or when asked.  ``ssd_decode_step`` is the
 one-token recurrence of serving (the reference has no kernel for it).
+
+``flash_attention`` is forward softmax attention over head-folded
+(BH, S, D) tensors: the Hopper kernel (``kernels/flash_attention.py``) for
+CUDA tensors, the plain version ``_flash_blocked`` (the online softmax of
+the reference's Pallas kernel, ``repro.kernels.flash_attention``) for CPU
+tensors or when asked.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import torch.nn.functional as F
 from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS, sample_noise
 from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, PhotonicConfig
+from repro_torch.kernels import flash_attention as flash_kernel_mod
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import ssd_scan as ssd_kernel_mod
 from repro_torch.kernels import taom_gemm as taom_kernel_mod
@@ -210,3 +218,66 @@ def ssd_decode_step(state: torch.Tensor, x_t: torch.Tensor,
     new_state = decay[:, None, None] * state + upd
     y = torch.einsum("zps,zs->zp", new_state, c_t)
     return y.to(x_t.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+def _flash_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, window: int = 0, block_q: int = 128,
+                   block_k: int = 128) -> torch.Tensor:
+    """Plain version of the flash kernel, with the TPU kernel's numerics:
+    an online softmax over key blocks with float32 running max ``m``, sum
+    ``l`` and accumulator ``acc``; masked scores *set* to -1e30 (padded
+    keys ``kj >= S``, and ``kj <= qi`` / ``kj > qi - window`` from global
+    indices); ``corr = exp(m_prev - m_new)``; output ``acc / max(l,
+    1e-30)`` in q's dtype.  S is padded to the block multiples as
+    ``flash_attention_fwd`` pads it and sliced back.  Every query row runs
+    the same sequence of key blocks as in the TPU kernel, so the query
+    blocks are made in one pass."""
+    bh, s, d = q.shape
+    scale = d ** -0.5
+    bq = min(block_q, max(8, s))
+    bk = min(block_k, max(8, s))
+    sp = max(-(-s // bq) * bq, -(-s // bk) * bk)
+    f32 = torch.float32
+    qf, kf, vf = (F.pad(t.to(f32), (0, 0, 0, sp - s)) for t in (q, k, v))
+    qi = torch.arange(sp, device=q.device)[:, None]
+    m = torch.full((bh, sp, 1), ref_mod.NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((bh, sp, 1), dtype=f32, device=q.device)
+    acc = torch.zeros((bh, sp, d), dtype=f32, device=q.device)
+    for k0 in range(0, sp, bk):
+        sc = torch.matmul(qf, kf[:, k0:k0 + bk].transpose(1, 2)) * scale
+        kj = k0 + torch.arange(bk, device=q.device)[None, :]
+        valid = kj < s                  # padded keys are never attended
+        if causal:
+            valid = valid & (kj <= qi)
+        if window:
+            valid = valid & (kj > qi - window)
+        sc = torch.where(valid, sc, ref_mod.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p, vf[:, k0:k0 + bk])
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out[:, :s].to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    impl: str = "auto") -> torch.Tensor:
+    """Softmax attention over (BH, S, D) q, k, v (heads folded into the
+    batch axis, K and V already expanded per head) -> (BH, S, D) in q's
+    dtype.  impl: 'auto' (the kernel for CUDA tensors, the plain version
+    for CPU tensors) | 'kernel' | 'ref', as in ``photonic_matmul``."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        impl = "kernel" if q.is_cuda else "ref"
+    if impl == "kernel":
+        return flash_kernel_mod.flash_attention_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window)
+    return _flash_blocked(q, k, v, causal, window)

@@ -13,6 +13,10 @@ the card.
 (counterpart of ``repro.kernels.ref.ssd_scan_reference``): the oracle the
 chunked plain version ``ops._ssd_chunked`` and the SSD kernel are checked
 against.
+
+``flash_attention_reference`` is the dense softmax-attention oracle of the
+flash kernel (counterpart of ``repro.kernels.flash_attention.
+flash_attention_reference``): the (S, S) scores made whole.
 """
 from __future__ import annotations
 
@@ -97,3 +101,27 @@ def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         state = decay[:, None, None] * state + upd
         ys.append(torch.einsum("hps,hs->hp", state, c_h))
     return torch.stack(ys).to(x.dtype), state
+
+
+NEG_INF = -1.0e30     # the flash kernel's fill for masked scores
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0) -> torch.Tensor:
+    """Dense oracle: (BH, S, D) softmax attention with the flash kernel's
+    mask — float32 scores times D**-0.5, masked scores set to -1e30,
+    softmax, then P V, cast to q's dtype."""
+    _, s, d = q.shape
+    f32 = torch.float32
+    scores = torch.einsum("bqd,bkd->bqk", q.to(f32), k.to(f32)) * (d ** -0.5)
+    qi = torch.arange(s, device=q.device)[:, None]
+    kj = torch.arange(s, device=q.device)[None, :]
+    valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= kj <= qi
+    if window:
+        valid &= kj > qi - window
+    scores = torch.where(valid[None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", probs, v.to(f32)).to(q.dtype)

@@ -2,19 +2,29 @@
 ``repro.launch.serve``).
 
 Builds a request batch of seeded random prompts, prefills, then decodes N
-tokens per request (greedy, or sampled at a temperature).  Prefill runs
-the SSD scan through ``ssm_impl``; its default 'auto' is the Hopper kernel
-(``kernels/ssd_scan.py``) on the card, as the reference's ssm module
-documents its serving path, and the plain version on the CPU.  The
-reference's ``serve()`` itself leaves ``prefill_fn`` at its jnp default.
-Both impls compute one function (the tests hold them together).  Runs on
-the CUDA card unless ``device`` names another device.
+tokens per request (greedy, or sampled at a temperature).  Runs on the
+CUDA card unless ``device`` names another device.
+
+Which kernels the prefill drives: for the ssm family (mamba2) the SSD scan
+through ``ssm_impl``, for the dense family (qwen2, h2o-danube3, gemma3)
+each attention layer's self-attention over the prompt through
+``attn_impl`` — the flash kernel (``kernels/flash_attention.py``).  Both
+default to 'auto': the Hopper kernel on the card, the plain version on the
+CPU.  The reference's ``serve()`` leaves both at their jnp/XLA defaults,
+and no reference entry point reaches its Pallas flash kernel (only
+``attention(attn_impl="pallas")`` does); the port drives its kernel from
+the prefill because the prefill into an empty cache computes the same
+function as that cache-less branch, which the reference describes as the
+train/prefill hot path.  Decode takes no kernel: the SSD one-token
+recurrence and the grouped-einsum attention over the KV cache, as in the
+reference.  Each impl computes one function (the tests hold them
+together).
 
 ``tokens_per_s`` is the decode rate: the ``gen - 1`` tokens per request
 that decode steps make, over the decode time (the first token comes from
 the prefill; the reference counts ``gen``).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
 """
 from __future__ import annotations
@@ -47,7 +57,8 @@ def _sync(device: torch.device) -> None:
 def serve(arch: str, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           greedy: bool = True, temperature: float = 1.0,
-          ssm_impl: str = "auto", device=None) -> ServeResult:
+          ssm_impl: str = "auto", attn_impl: str = "auto",
+          device=None) -> ServeResult:
     if gen < 1 or prompt_len < 1 or batch < 1:
         raise ValueError("batch, prompt_len and gen must be >= 1")
     device = resolve_device(device)
@@ -67,7 +78,8 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
     _sync(device)
     t0 = time.perf_counter()
     logits, state = zoo.prefill_fn(params, {"tokens": prompts.to(device)},
-                                   cfg, caches, ssm_impl=ssm_impl)
+                                   cfg, caches, ssm_impl=ssm_impl,
+                                   attn_impl=attn_impl)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -83,7 +95,7 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
     t1 = time.perf_counter()
     for i in range(gen - 1):
         logits, state = zoo.decode_fn(params, tok, prompt_len + i, cfg,
-                                      state)
+                                      state, attn_impl=attn_impl)
         tok = pick(logits)
         out.append(tok)
     _sync(device)
@@ -101,10 +113,13 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--ssm-impl", default="auto")
+    ap.add_argument("--attn-impl", default="auto",
+                    choices=("auto", "kernel", "ref", "dense"))
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
     r = serve(args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
-              ssm_impl=args.ssm_impl, device=args.device)
+              ssm_impl=args.ssm_impl, attn_impl=args.attn_impl,
+              device=args.device)
     print(f"prefill {r.prefill_s*1e3:.1f} ms, decode {r.decode_s*1e3:.1f} ms"
           f" ({r.tokens_per_s:.1f} tok/s), output shape "
           f"{tuple(r.tokens.shape)}")

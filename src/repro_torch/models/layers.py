@@ -28,6 +28,8 @@ from repro_torch.core.types import Backend, PhotonicConfig
 # on one device and keeps them only so make_* signatures match).
 EMBED = "embed"
 MLP = "mlp"
+HEADS = "heads"
+KV_HEADS = "kv_heads"
 VOCAB = "vocab"
 SSM_INNER = "ssm_inner"
 

@@ -8,11 +8,14 @@
 
 ``init_params`` and ``init_caches`` run on the CUDA card unless the caller
 names another device (``device="cpu"`` runs the plain PyTorch versions);
-``prefill_fn`` and ``decode_fn`` run where their params are.  Families the
-port cannot run yet — ``audio`` (the encoder-decoder) and every family
-with attention or MoE — raise ``NotImplementedError`` at entry;
-``loss_fn`` waits for the training slice.  Batches are dicts:
-{"tokens"}.
+``prefill_fn`` and ``decode_fn`` run where their params are.  The port runs
+the ssm (mamba2) and dense (qwen2, h2o-danube3, gemma3) families; the
+others — ``audio`` (the encoder-decoder), ``vlm``, ``hybrid`` and ``moe``
+— raise ``NotImplementedError`` at entry naming their ROADMAP item.
+``loss_fn`` waits for the training slice.  Batches are dicts: {"tokens"}.
+``params_from_jax`` carries any reference tree across leaf by leaf:
+attention's QKV biases and its ``head_pad``-padded ``wq`` / ``wo`` as they
+are.
 """
 from __future__ import annotations
 
@@ -48,22 +51,26 @@ def _check_device(params: dict, tokens: torch.Tensor) -> None:
 
 def prefill_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                caches, ctx: L.PhotonicCtx = L.EXACT_CTX,
-               ssm_impl: str = "auto"):
+               ssm_impl: str = "auto", attn_impl: str = "auto"):
     """Prefill on the params' device.  ssm_impl: the SSD scan's
-    ('auto' | 'kernel' | 'ref', see ``kernels.ops.ssd_scan``)."""
+    ('auto' | 'kernel' | 'ref', see ``kernels.ops.ssd_scan``); attn_impl:
+    the prompt's self-attention ('auto' | 'kernel' | 'ref' for the flash
+    kernel or its plain version, 'dense' for the reference's default path;
+    see ``models.attention``)."""
     transformer.check_supported(cfg)
     _check_device(params, batch["tokens"])
     logits, caches = transformer.prefill(params, batch["tokens"], cfg,
-                                         caches, ctx, ssm_impl)
+                                         caches, ctx, ssm_impl, attn_impl)
     return logits, {"layers": caches}
 
 
 def decode_fn(params, token: torch.Tensor, index: int, cfg: ArchConfig,
-              state, ctx: L.PhotonicCtx = L.EXACT_CTX):
+              state, ctx: L.PhotonicCtx = L.EXACT_CTX,
+              attn_impl: str = "auto"):
     transformer.check_supported(cfg)
     _check_device(params, token)
     logits, caches = transformer.decode_step(params, token, index, cfg,
-                                             state["layers"], ctx)
+                                             state["layers"], ctx, attn_impl)
     return logits, {**state, "layers": caches}
 
 

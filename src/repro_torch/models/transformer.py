@@ -1,37 +1,43 @@
 """Decoder-only LM assembly (counterpart of ``repro.models.transformer``).
 
 A config resolves to a *layer plan*: a short list of groups, each a stack
-of ``repeats`` identical layers.  Params keep the reference's leading stack
-axis, so one tree map carries a reference param tree across; the port runs
-the stack as a Python loop (serving only: no remat, no ``lax.scan``).
+of ``repeats`` identical superblocks.  Params keep the reference's leading
+stack axis, so one tree map carries a reference param tree across; the
+port runs the stack as a Python loop (serving only: no remat, no
+``lax.scan``).
 
-Families run so far: ``ssm`` (mamba2).  The others (dense and local:global
-attention, MoE + MLA, the VLM projector, MTP, the hybrid's shared
-attention) raise ``NotImplementedError`` naming their ROADMAP item.  The
-reference's ``dist`` context is dropped: the port runs on one device.
+Families run so far: ``ssm`` (mamba2) and ``dense`` (qwen2, h2o-danube3
+with its sliding window, gemma3's local:global superblocks).  The others
+(the VLM projector, the hybrid's shared attention, MoE + MLA + MTP, the
+encoder-decoder) raise ``NotImplementedError`` naming their ROADMAP item.
+The reference's ``dist`` context is dropped: the port runs on one device.
 
 Serving: ``init_caches`` -> ``prefill`` -> ``decode_step`` with explicit
-cache trees throughout.
+cache trees throughout.  ``ssm_impl`` picks the SSD scan's impl and
+``attn_impl`` attention's (``models.attention.attention``): the flash
+kernel runs each attention layer's self-attention over the prompt.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 # What each family still needs, by ROADMAP item.
 _UNPORTED = {
-    "dense": "attention (ROADMAP A7a, the next slice)",
-    "vlm": "attention and the VLM projector (ROADMAP A7a, A7d)",
-    "hybrid": "the shared attention block (ROADMAP A7b)",
-    "moe": "attention, MoE and MLA (ROADMAP A7a, A7c)",
+    "vlm": "the VLM projector (ROADMAP A7d)",
+    "hybrid": "the hybrid's mamba blocks with a shared attention block "
+              "(ROADMAP A7b)",
+    "moe": "MoE, MLA and MTP (ROADMAP A7c)",
     "audio": "the encoder-decoder (ROADMAP A7d)",
 }
+_PORTED = ("ssm", "dense")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -40,8 +46,8 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family needs "
             f"{_UNPORTED[cfg.family]}, not ported yet; the port runs the "
-            f"ssm family (mamba2)")
-    if cfg.family != "ssm":
+            f"ssm (mamba2) and dense (qwen2, h2o-danube3, gemma3) families")
+    if cfg.family not in _PORTED:
         raise NotImplementedError(f"{cfg.name}: unknown family "
                                   f"{cfg.family!r}")
 
@@ -96,20 +102,49 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def attn_spec(cfg: ArchConfig, window: int = -1) -> A.AttnSpec:
+    return A.AttnSpec(
+        d_model=cfg.d_model, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
+        window=(cfg.sliding_window if window < 0 else window),
+        mla=cfg.mla, head_pad=cfg.head_pad)
+
+
 # ---------------------------------------------------------------------------
 # Parameter construction
 # ---------------------------------------------------------------------------
-def _make_sublayer(maker: L.ParamMaker, name: str, cfg: ArchConfig) -> dict:
-    """A ``mamba`` sublayer (the only kind of the ssm family)."""
-    return {"mamba": S.make_mamba(maker, f"{name}.mamba", cfg.d_model,
-                                  cfg.ssm),
-            "ln": L.make_rms_norm(maker, f"{name}.ln", cfg.d_model)}
+def _make_sublayer(maker: L.ParamMaker, name: str, cfg: ArchConfig,
+                   kind: str, window: int) -> dict:
+    if kind == "mamba":
+        return {"mamba": S.make_mamba(maker, f"{name}.mamba", cfg.d_model,
+                                      cfg.ssm),
+                "ln": L.make_rms_norm(maker, f"{name}.ln", cfg.d_model)}
+    return {   # 'attn_dense'
+        "ln1": L.make_rms_norm(maker, f"{name}.ln1", cfg.d_model),
+        "attn": A.make_attention(maker, f"{name}.attn",
+                                 attn_spec(cfg, window)),
+        "ln2": L.make_rms_norm(maker, f"{name}.ln2", cfg.d_model),
+        "ffn": L.make_mlp(maker, f"{name}.ffn", cfg.d_model, cfg.d_ff),
+    }
 
 
 def make_stacked(maker: L.ParamMaker, name: str, n: int, build_fn) -> dict:
     """Stack n structurally-identical param trees on a leading STACK axis."""
     parts = [build_fn(maker, f"{name}.{i}") for i in range(n)]
     return tree_map(lambda *xs: torch.stack(xs), *parts)
+
+
+def _make_group(maker: L.ParamMaker, cfg: ArchConfig, g: Group) -> dict:
+    if g.period:   # local:global superblock
+        def build(mk, nm):
+            return {f"l{i}": _make_sublayer(mk, f"{nm}.l{i}", cfg,
+                                            g.period[i], g.windows[i])
+                    for i in range(len(g.period))}
+    else:
+        def build(mk, nm):
+            return _make_sublayer(mk, nm, cfg, g.kind, -1)
+    return {"stack": make_stacked(maker, g.name, g.repeats, build)}
 
 
 def init_params(cfg: ArchConfig, seed: int,
@@ -129,41 +164,62 @@ def init_params(cfg: ArchConfig, seed: int,
             "lm_head.table", (cfg.vocab_size, cfg.d_model),
             (L.VOCAB, L.EMBED), scale=cfg.d_model ** -0.5)}
     for g in layer_plan(cfg):
-        p[g.name] = {"stack": make_stacked(
-            maker, g.name, g.repeats,
-            lambda mk, nm: _make_sublayer(mk, nm, cfg))}
+        p[g.name] = _make_group(maker, cfg, g)
     return p
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
-def _run_sublayer(p, x, cfg, ctx, name, cache=None, cache_index=None,
-                  ssm_impl="auto", return_state=False):
-    """A ``mamba`` sublayer: prefill (full sequence) or one decode step."""
-    h = L.rms_norm(p["ln"], x)
-    if cache_index is not None:
-        out, st = S.mamba_decode_step(p["mamba"], h, cfg.d_model, cfg.ssm,
-                                      cache, ctx, name)
-    else:
-        out, st = S.mamba_block(p["mamba"], h, cfg.d_model, cfg.ssm, ctx,
-                                name, state=cache, return_state=return_state,
-                                impl=ssm_impl)
-    return x + out, st
+def _run_sublayer(p, x, positions, cfg, kind, window, ctx, name, cache=None,
+                  cache_index=None, ssm_impl="auto", attn_impl="auto",
+                  return_state=False):
+    """One sublayer: prefill (full sequence) or one decode step."""
+    if kind == "mamba":
+        h = L.rms_norm(p["ln"], x)
+        if cache_index is not None:
+            out, st = S.mamba_decode_step(p["mamba"], h, cfg.d_model,
+                                          cfg.ssm, cache, ctx, name)
+        else:
+            out, st = S.mamba_block(p["mamba"], h, cfg.d_model, cfg.ssm, ctx,
+                                    name, state=cache,
+                                    return_state=return_state, impl=ssm_impl)
+        return x + out, st
+    spec = attn_spec(cfg, window)
+    h, new_cache = A.attention(p["attn"], L.rms_norm(p["ln1"], x), positions,
+                               spec, ctx, f"{name}.attn", cache, cache_index,
+                               attn_impl=attn_impl)
+    x = x + h
+    ff = L.mlp(p["ffn"], L.rms_norm(p["ln2"], x), ctx, f"{name}.ffn")
+    return x + ff, new_cache
 
 
-def _scan_group(p, x, cfg, g: Group, ctx, caches=None, cache_index=None,
-                ssm_impl="auto", return_state=False):
-    """Run one plan group layer by layer; returns (x, new_caches_or_None).
-    Every layer's call sites are named after the group, as in the
-    reference's scanned body."""
+def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
+                cache_index=None, ssm_impl="auto", attn_impl="auto",
+                return_state=False):
+    """Run one plan group superblock by superblock; returns (x,
+    new_caches_or_None).  Call sites are named as in the reference's
+    scanned body: after the group, and ``{group}.{i}`` for the i-th
+    sublayer of a local:global superblock."""
     stacked = p["stack"]
     new_caches = []
-    for i in range(g.repeats):
-        layer_p = tree_map(lambda a, i=i: a[i], stacked)
-        c = None if caches is None else tree_map(lambda a, i=i: a[i], caches)
-        x, nc = _run_sublayer(layer_p, x, cfg, ctx, g.name, c, cache_index,
-                              ssm_impl, return_state)
+    for r in range(g.repeats):
+        layer_p = tree_map(lambda a, r=r: a[r], stacked)
+        layer_c = None if caches is None else \
+            tree_map(lambda a, r=r: a[r], caches)
+        if g.period:
+            nc = {}
+            for i, (kind, win) in enumerate(zip(g.period, g.windows)):
+                key = f"l{i}"
+                c = None if layer_c is None else layer_c[key]
+                x, nc[key] = _run_sublayer(
+                    layer_p[key], x, positions, cfg, kind, win, ctx,
+                    f"{g.name}.{i}", c, cache_index, ssm_impl, attn_impl,
+                    return_state)
+        else:
+            x, nc = _run_sublayer(layer_p, x, positions, cfg, g.kind, -1,
+                                  ctx, g.name, layer_c, cache_index,
+                                  ssm_impl, attn_impl, return_state)
         new_caches.append(nc)
     if new_caches[-1] is None or not (caches is not None or return_state):
         return x, None
@@ -174,14 +230,22 @@ def _head(params: dict, cfg: ArchConfig) -> dict:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None] \
+        .expand(b, s)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             ctx: L.PhotonicCtx = L.EXACT_CTX,
-            ssm_impl: str = "auto") -> torch.Tensor:
+            ssm_impl: str = "auto", attn_impl: str = "auto") -> torch.Tensor:
     """Scoring forward: tokens (B, S) -> logits (B, S, vocab)."""
     check_supported(cfg)
+    b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
+    positions = _positions(b, s, tokens.device)
     for g in layer_plan(cfg):
-        x, _ = _scan_group(params[g.name], x, cfg, g, ctx, ssm_impl=ssm_impl)
+        x, _ = _scan_group(params[g.name], x, positions, cfg, g, ctx,
+                           ssm_impl=ssm_impl, attn_impl=attn_impl)
     x = L.rms_norm(params["final_ln"], x)
     return L.unembed(_head(params, cfg), x, ctx)
 
@@ -192,30 +256,44 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16,
                 device: torch.device = torch.device("cpu")) -> dict:
-    """Zero caches with a leading stack axis per group.  (Mamba state is
-    float32 and O(1) in ``max_len``; ``dtype`` is the attention KV cache's,
-    kept for the reference's signature.)"""
+    """Zero caches with a leading stack axis per group: attention KV caches
+    of ``dtype`` (``max_len`` slots, or the window's), mamba state in
+    float32 (O(1) in ``max_len``)."""
     check_supported(cfg)
-    del max_len, dtype
     caches = {}
     for g in layer_plan(cfg):
-        one = S.init_state(cfg.d_model, cfg.ssm, batch, device=device)
+        def one(kind: str, window: int):
+            if kind == "mamba":
+                return S.init_state(cfg.d_model, cfg.ssm, batch,
+                                    device=device)
+            return A.init_cache(attn_spec(cfg, window), batch, max_len,
+                                dtype, device)
+
+        if g.period:
+            block = {f"l{i}": one(g.period[i], g.windows[i])
+                     for i in range(len(g.period))}
+        else:
+            block = one(g.kind, cfg.sliding_window if g.kind != "mamba"
+                        else 0)
         caches[g.name] = tree_map(
-            lambda a: a[None].expand((g.repeats,) + a.shape).clone(), one)
+            lambda a: a[None].expand((g.repeats,) + a.shape).clone(), block)
     return caches
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             caches: dict, ctx: L.PhotonicCtx = L.EXACT_CTX,
-            ssm_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
+            ssm_impl: str = "auto",
+            attn_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
     """Fill caches from a prompt; returns (last-token logits, caches)."""
     check_supported(cfg)
+    b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
+    positions = _positions(b, s, tokens.device)
     new_caches = {}
     for g in layer_plan(cfg):
-        x, nc = _scan_group(params[g.name], x, cfg, g, ctx,
+        x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,
                             caches=caches[g.name], ssm_impl=ssm_impl,
-                            return_state=True)
+                            attn_impl=attn_impl, return_state=True)
         new_caches[g.name] = nc
     x = L.rms_norm(params["final_ln"], x[:, -1:])
     return L.unembed(_head(params, cfg), x, ctx), new_caches
@@ -223,16 +301,21 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 def decode_step(params: dict, token: torch.Tensor, index: int,
                 cfg: ArchConfig, caches: dict,
-                ctx: L.PhotonicCtx = L.EXACT_CTX
-                ) -> Tuple[torch.Tensor, dict]:
-    """One decode step.  token: (B, 1) integer; index: its position (what
-    attention's cache needs; the mamba state does not use it)."""
+                ctx: L.PhotonicCtx = L.EXACT_CTX,
+                attn_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
+    """One decode step.  token: (B, 1) integer; index: its position.
+    (One token: attention takes the grouped einsum whatever ``attn_impl``
+    says, as in the reference; the argument is checked and passed on.)"""
     check_supported(cfg)
+    b = token.shape[0]
     x = L.embed(params["embed"], token)
+    positions = torch.full((b, 1), int(index), dtype=torch.int32,
+                           device=token.device)
     new_caches = {}
     for g in layer_plan(cfg):
-        x, nc = _scan_group(params[g.name], x, cfg, g, ctx,
-                            caches=caches[g.name], cache_index=index)
+        x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,
+                            caches=caches[g.name], cache_index=index,
+                            attn_impl=attn_impl)
         new_caches[g.name] = nc
     x = L.rms_norm(params["final_ln"], x)
     return L.unembed(_head(params, cfg), x, ctx), new_caches

@@ -6,10 +6,15 @@ elsewhere).  Run them on the card with
 They hold the CUDA kernels against their plain PyTorch versions on the
 card — the TAOM GEMM bit for bit where the integer psums stay below 2^24
 (asserted), the SSD scan within rtol 1e-4 and atol 1e-4 * max|plain| (its
-sums run in another order) — and run the zoo networks and a mamba2
-prefill end to end through the kernels.  They import no JAX.
+sums run in another order), the flash-attention kernel within rtol 1e-5
+and atol 1e-5 * max|plain| in float32 and one bf16 ulp of max|plain|'s
+binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
+version's over 128-key blocks) — and run the zoo networks, a mamba2
+prefill and a qwen2 prefill end to end through the kernels.  They import
+no JAX.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -19,7 +24,7 @@ from repro_torch.core import perf_model as pm
 from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
 from repro_torch.exec import PlanCache, execute_cnn, plan_for_network
-from repro_torch.kernels import ops, ref, ssd_scan, taom_gemm
+from repro_torch.kernels import flash_attention, ops, ref, ssd_scan, taom_gemm
 from repro_torch.models import lowering as lw
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.zoo_cnn import ZOO
@@ -169,3 +174,82 @@ def test_mamba_prefill_through_the_kernel_on_card(cuda):
     for key in ("conv", "ssm"):
         assert _ssd_close(sk["layers"]["mamba"][key],
                           sr["layers"]["mamba"][key])
+
+
+def _flash_inputs(cuda, bh, s, d, dtype, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=gen, device=cuda)
+            .to(getattr(torch, dtype)) for _ in range(3)]
+
+
+def _flash_close(got, want):
+    scale = want.float().abs().max().item()
+    if want.dtype == torch.float32:
+        return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return (got.float() - want.float()).abs().max().item() <= ulp
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window,dtype", [
+    (64, 1000, 64, True, 0, "bfloat16"),   # qwen2-0.5b at batch 4
+    (2, 37, 16, True, 0, "float32"),       # a ragged S
+    (3, 300, 120, True, 100, "float32"),   # h2o-danube3's head, a window
+    (2, 257, 240, True, 64, "bfloat16"),   # gemma3's head
+    (4, 129, 24, False, 0, "float32"),     # non-causal, D 24
+    (1, 1, 8, True, 0, "float32")])        # one token
+def test_flash_kernel_matches_plain_on_card(cuda, bh, s, d, causal, window,
+                                            dtype):
+    q, k, v = _flash_inputs(cuda, bh, s, d, dtype, seed=s + d)
+    before = flash_attention.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              impl="kernel")
+    assert flash_attention.LAUNCHES == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, window=window,
+                               impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert _flash_close(got, want)
+
+
+def test_flash_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
+    q, k, v = _flash_inputs(cuda, 2, 16, 8, "float32", seed=0)
+    with pytest.raises(TypeError, match="float32 or all"):
+        flash_attention.flash_attention_fwd(q.double(), k.double(),
+                                            v.double())
+    with pytest.raises(TypeError, match="float32 or all"):
+        flash_attention.flash_attention_fwd(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        flash_attention.flash_attention_fwd(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_fwd(
+            q, k.transpose(0, 1).contiguous().transpose(0, 1), v)
+    with pytest.raises(ValueError, match="k has shape"):
+        flash_attention.flash_attention_fwd(q, k[:, :8], v)
+    wide = torch.zeros(1, 4, 264, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention.flash_attention_fwd(wide, wide, wide)
+
+
+def test_qwen2_prefill_through_the_flash_kernel_on_card(cuda):
+    cfg = dataclasses.replace(get_config("qwen2-0.5b", smoke=True),
+                              dtype="float32")
+    params = zoo.init_params(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    out = {}
+    for impl in ("auto", "kernel", "ref"):     # 'auto' is the default
+        caches = zoo.init_caches(cfg, 2, 21, torch.float32, device=cuda)
+        kwargs = {} if impl == "auto" else {"attn_impl": impl}
+        before = flash_attention.LAUNCHES
+        out[impl] = zoo.prefill_fn(params, {"tokens": tokens.to(cuda)}, cfg,
+                                   caches, **kwargs)
+        launched = flash_attention.LAUNCHES - before
+        assert launched == (0 if impl == "ref" else cfg.num_layers)
+    (lk, sk), (lr, sr) = out["kernel"], out["ref"]
+    assert torch.equal(out["auto"][0], lk)
+    assert torch.allclose(lk, lr, rtol=1e-4, atol=1e-4 * lr.abs().max())
+    body_k, body_r = sk["layers"]["body"], sr["layers"]["body"]
+    assert torch.equal(body_k["pos"], body_r["pos"])
+    for key in ("k", "v"):     # layer 1's come from layer 0's attention
+        assert torch.allclose(body_k[key], body_r[key], rtol=1e-4,
+                              atol=1e-4 * body_r[key].abs().max())

@@ -35,7 +35,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-from repro_torch.kernels import ssd_scan, taom_gemm
+from repro_torch.kernels import flash_attention, ssd_scan, taom_gemm
 print(json.dumps({
     "modules": names,
     "foreign": sorted(k for k in sys.modules
@@ -43,6 +43,7 @@ print(json.dumps({
     "processes": calls,
     "library_loaded": taom_gemm._LIB is not None,
     "ssd_library_loaded": ssd_scan._LIB is not None,
+    "flash_library_loaded": flash_attention._LIB is not None,
 }))
 """
 
@@ -58,12 +59,14 @@ def test_import_loads_no_jax_no_reference_and_builds_nothing():
     for name in ("configs", "configs.base", "configs.mamba2_130m",
                  "models.layers", "models.ssm", "models.transformer",
                  "models.model_zoo", "launch.serve", "kernels.ssd_scan",
-                 "kernels.nvcc"):
+                 "kernels.nvcc", "models.attention",
+                 "kernels.flash_attention"):
         assert f"repro_torch.{name}" in report["modules"], name
     assert report["foreign"] == []
     assert report["processes"] == []
     assert report["library_loaded"] is False
     assert report["ssd_library_loaded"] is False
+    assert report["flash_library_loaded"] is False
 
 
 @pytest.fixture

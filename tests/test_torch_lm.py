@@ -356,7 +356,24 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 @pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
                                   if a != ARCH])
 def test_unported_families_raise(arch):
+    """Families the port does not run raise, naming their ROADMAP item; the
+    dense family (qwen2, h2o-danube3, gemma3), ported since, runs through
+    the same entry points (its conformance: tests/test_torch_attention.py).
+    """
     cfg = tconfigs.get_config(arch, smoke=True)
+    if cfg.family == "dense":
+        params = tzoo.init_params(cfg, 0, device="cpu")
+        caches = tzoo.init_caches(cfg, 1, 8, device="cpu")
+        logits, state = tzoo.prefill_fn(
+            params, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg,
+            caches)
+        logits, _ = tzoo.decode_fn(params, torch.zeros(1, 1,
+                                                       dtype=torch.long),
+                                   4, cfg, state)
+        assert logits.shape == (1, 1, cfg.vocab_size)
+        assert tserve.serve(arch, batch=1, prompt_len=4, gen=2,
+                            device="cpu").tokens.shape == (1, 6)
+        return
     for call in (lambda: tzoo.init_params(cfg, 0, device="cpu"),
                  lambda: tzoo.init_caches(cfg, 1, 8, device="cpu"),
                  lambda: tzoo.prefill_fn({}, {"tokens": None}, cfg, {}),
