@@ -53,12 +53,17 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 64, causal) in bf16 and float32, h2o-danube3's head (D 120,
                 window 4096, S 5000), gemma3's (D 240, window 1024, S
                 2048), a non-causal shape (S 1500, D 64) and a tiny ragged
-                one (S 37, D 16); float32 within rtol 1e-5 and atol 1e-5 *
-                max|plain|, bf16 within one bf16 ulp of max|plain|'s
-                binade; then time kernel, plain version and PyTorch's
+                one (S 37, D 16), then the bf16 tensor-core kernel's edges
+                (non-causal, D 24 and 40, D 36 without TMA, one token, a
+                key one past a tile, a window starting inside a key tile);
+                float32 within rtol 1e-5 and atol 1e-5 * max|plain|, bf16
+                within one bf16 ulp of max|plain|'s binade; then time
+                kernel, plain version and PyTorch's
                 scaled_dot_product_attention (the yardstick; the port never
                 calls it) at qwen2's shape (CUDA graph replay) beside the
-                bound;
+                bound, with the kernel/SDPA ratio and the kernel's TFLOP/s
+                over the function's flops, and the bf16 kernel alone at
+                h2o-danube3's and gemma3's shapes;
   7. qwen2    — serve qwen2-0.5b at its full width through
                 ``launch/serve.serve`` (24 layers, d_model 896, 14 of 16
                 padded heads, GQA over 2 KV heads, QKV bias, seeded random
@@ -103,8 +108,11 @@ QWEN_ARCH = "qwen2-0.5b"         # phase 7's model, at its full width
 FLASH_TOL = 1e-5                 # float32: rtol, and atol * max|plain|
 # Phase 6's shapes (BH, S, D, causal, window, dtype): qwen2-0.5b's served
 # prefill (batch 4 x 16 padded heads; the shape timed) in both dtypes,
-# h2o-danube3's and gemma3's heads with their windows, a non-causal shape
-# and a tiny ragged one.
+# h2o-danube3's and gemma3's heads with their windows (also timed in
+# bf16), a non-causal shape and a tiny ragged one; then the bf16 kernel's
+# edges: non-causal, D 24 and 40 (TMA zero-fills the 64-column atom), D 36
+# (D % 8 != 0: plain loads, no TMA), one token, a key one past a tile, a
+# window that starts inside a key tile.
 FLASH_SHAPES = ((64, 1000, 64, True, 0, "bfloat16"),
                 (64, 1000, 64, True, 0, "float32"),
                 (4, 5000, 120, True, 4096, "bfloat16"),
@@ -112,7 +120,14 @@ FLASH_SHAPES = ((64, 1000, 64, True, 0, "bfloat16"),
                 (4, 2048, 240, True, 1024, "float32"),
                 (8, 1500, 64, False, 0, "float32"),
                 (3, 37, 16, True, 0, "float32"),
-                (3, 37, 16, True, 0, "bfloat16"))
+                (3, 37, 16, True, 0, "bfloat16"),
+                (8, 1500, 64, False, 0, "bfloat16"),
+                (4, 300, 24, True, 0, "bfloat16"),
+                (4, 300, 40, False, 0, "bfloat16"),
+                (4, 300, 36, True, 0, "bfloat16"),
+                (2, 1, 64, True, 0, "bfloat16"),
+                (4, 65, 64, True, 0, "bfloat16"),
+                (4, 1000, 64, True, 40, "bfloat16"))
 
 
 def log(msg: str) -> None:
@@ -419,8 +434,8 @@ def flash_bound(bh: int, s: int, d: int, causal: bool, window: int,
     lets through (Q K^T and P V; masked pairs need no work), over the
     card's rate for the inputs' type: bf16 on the tensor cores, float32
     on the CUDA cores.  ``f32_floor_ms`` is the same flops at the float32
-    CUDA-core rate, the least time for a kernel that computes in float32
-    there, as this one does."""
+    CUDA-core rate, the least time for the kernel's float32 instance,
+    which computes there."""
     pairs = sum((qi + 1 if causal else s) -
                 (max(0, qi - window + 1) if window else 0)
                 for qi in range(s))
@@ -508,6 +523,23 @@ def flash_phase(dev) -> dict:
         "float32 kernel_ms={f32_ms:.5f} (device times, CUDA graph replay)"
         .format(bh, s, d, **row))
     log(f"[flash] SDPA vs plain at that shape: max |diff| = {lib_err:.3e}")
+    row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+    row["tflops"] = row["gflop"] / row["ms"]       # GFLOP per ms
+    log("[flash] bf16 kernel / SDPA = {sdpa_ratio:.3f}; the kernel computes "
+        "the function's {gflop:.3f} GFLOP at {tflops:.1f} TFLOP/s ({share:.1%}"
+        " of the 989 TFLOP/s bf16 peak; the P split adds half again on the "
+        "tensor cores)".format(share=row["tflops"] * 1e12 / BF16_FLOPS_PER_S,
+                               **row))
+    # The windowed bf16 heads (h2o-danube3, gemma3): two and four 64-column
+    # atoms, the other instances of the kernel.
+    for bh, s, d, causal, window, dtype in FLASH_SHAPES[2:4]:
+        q, k, v = inputs(bh, s, d, dtype)
+        ms = device_ms(lambda: flash_attention.flash_attention_fwd(
+            q, k, v, causal=causal, window=window), iters=10, replays=5)
+        b = flash_bound(bh, s, d, causal, window, 2)
+        log(f"[flash] BH={bh} S={s} D={d} window={window} bf16: kernel_ms="
+            f"{ms:.5f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}), "
+            f"{b['gflop'] / ms:.1f} TFLOP/s (device time, CUDA graph replay)")
     return row
 
 
@@ -660,7 +692,8 @@ def main() -> int:
     for lib, build_log, secs in builds:
         log(f"[build] {lib.name} in {secs:.1f} s")
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("properties for", "registers",
+                                      "spill", "arning", "Performance")):
                 log(f"[build] {line.strip()}")
 
     # -- 2. kernel vs plain version on the card -------------------------------
@@ -911,6 +944,8 @@ def main() -> int:
         "library_ms": flash["library_ms"],
         "f32_floor_ms": flash["f32_floor_ms"],
         "float32_ms": flash["f32_ms"],
+        "library_ratio": flash["sdpa_ratio"],
+        "tflops": flash["tflops"],
         "per": f"one launch at BH={bh} ({LM_BATCH} x 16 padded heads), "
                f"S={s}, D={d}, causal, {dtype} (one {QWEN_ARCH} layer's "
                f"prefill at batch {LM_BATCH}, prompt {LM_PROMPT})",

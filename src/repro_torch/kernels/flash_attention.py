@@ -13,12 +13,22 @@ online softmax over key tiles with float32 running max, sum and
 accumulator, and the output ``acc / max(l, 1e-30)`` in q's dtype.
 
 Bound on this card: at the served shapes (D 64, S ~1000, bf16) the work is
-~250 flops a byte, so operations bound it; the kernel runs them in float32
-on the CUDA cores, not on the tensor cores (see the source's header).  One
-block owns one (bh, 64-row query tile) and loops over the key tiles that
-can hold a valid key — tiles wholly above the diagonal or wholly outside
-the window are skipped, which leaves the result unchanged.  It takes
-float32 and bfloat16, any S >= 1 and D up to 256.
+~250 flops a byte, so operations bound it, and they must run on the
+tensor cores.  The bfloat16 instance does (see the source's header): Q K^T
+and P V as wgmma on the bf16 tensor cores, P split into two bf16 terms so
+that the reference's float32 P is kept to 2^-17 (1.5x the function's
+flops on the tensor cores), K and V streamed by TMA through a ring of
+shared-memory stages, a producer warpgroup beside one consumer warpgroup
+per 64-row query tile.  With D % 8 != 0 (TMA needs 16-byte strides) or an
+input off a 16-byte boundary, the same kernel stages the tiles with plain
+loads instead; it is still a launch of the kernel.  The float32 instance
+stays on the CUDA cores (tensor cores would round float32 to TF32, which
+the float32 contract forbids).  Both loop over only the key tiles that can
+hold a valid key — tiles wholly above the diagonal or wholly outside the
+window are skipped, which leaves the result unchanged — and take any
+S >= 1 and D up to 256.  ``chip_smoke.py`` times the kernel beside its
+bound (``flash_bound``: the function's flops at the tensor cores' rate, or
+its bytes, whichever is longer) and PyTorch's SDPA.
 
 On a CPU tensor the wrapper runs the plain PyTorch version
 (``kernels.ops._flash_blocked``); on a CUDA tensor it launches the kernel
@@ -39,7 +49,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
-#: Largest head width the kernel takes, and its query and key tile rows.
+#: Largest head width the kernel takes, and its query and key tile rows
+#: (both instances).
 MAX_HEAD = 256
 TILE = 64
 

@@ -9,9 +9,10 @@ card — the TAOM GEMM bit for bit where the integer psums stay below 2^24
 sums run in another order), the flash-attention kernel within rtol 1e-5
 and atol 1e-5 * max|plain| in float32 and one bf16 ulp of max|plain|'s
 binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
-version's over 128-key blocks) — and run the zoo networks, a mamba2
-prefill and a qwen2 prefill end to end through the kernels.  They import
-no JAX.
+version's over 128-key blocks; the bf16 kernel's P reaches the tensor
+cores as two bf16 terms, within 2^-17 of the float32 P) — and run the
+zoo networks, a mamba2 prefill and a qwen2 prefill end to end through the
+kernels.  They import no JAX.
 """
 import dataclasses
 import math
@@ -196,7 +197,18 @@ def _flash_close(got, want):
     (3, 300, 120, True, 100, "float32"),   # h2o-danube3's head, a window
     (2, 257, 240, True, 64, "bfloat16"),   # gemma3's head
     (4, 129, 24, False, 0, "float32"),     # non-causal, D 24
-    (1, 1, 8, True, 0, "float32")])        # one token
+    (1, 1, 8, True, 0, "float32"),         # one token
+    # the bf16 tensor-core kernel's edges
+    (4, 129, 64, False, 0, "bfloat16"),    # non-causal
+    (3, 200, 24, True, 0, "bfloat16"),     # D 24: TMA zero-fills to 64
+    (2, 300, 40, False, 0, "bfloat16"),    # D 40, non-causal
+    (2, 150, 20, True, 0, "bfloat16"),     # D % 8 != 0: no TMA, plain loads
+    (2, 140, 150, True, 0, "bfloat16"),    # D 150: no TMA, three atoms
+    (1, 1, 64, True, 0, "bfloat16"),       # one token
+    (3, 65, 64, True, 0, "bfloat16"),      # one key past a tile
+    (2, 300, 64, True, 40, "bfloat16"),    # window starts inside a tile
+    (2, 333, 200, True, 100, "bfloat16"),  # D 200 (four atoms), a window
+    (2, 200, 128, False, 50, "bfloat16")])  # window without causal
 def test_flash_kernel_matches_plain_on_card(cuda, bh, s, d, causal, window,
                                             dtype):
     q, k, v = _flash_inputs(cuda, bh, s, d, dtype, seed=s + d)
@@ -208,6 +220,23 @@ def test_flash_kernel_matches_plain_on_card(cuda, bh, s, d, causal, window,
                                impl="ref")
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.dtype == q.dtype
+    assert _flash_close(got, want)
+
+
+@pytest.mark.parametrize("d,offset", [(20, 0), (36, 0), (64, 1)])
+def test_flash_kernel_without_tma_still_launches_on_card(cuda, d, offset):
+    # D % 8 != 0, or a q not on a 16-byte boundary: TMA cannot read it,
+    # and the kernel stages the tiles with plain loads instead.
+    q, k, v = _flash_inputs(cuda, 2, 97, d, "bfloat16", seed=d)
+    if offset:
+        buf = torch.empty(q.numel() + offset, dtype=q.dtype, device=cuda)
+        q = buf[offset:].view(q.shape).copy_(q)
+        assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention_fwd(q, k, v, causal=True)
+    assert flash_attention.LAUNCHES == before + 1
+    want = ops._flash_blocked(q, k, v, True)
+    torch.cuda.synchronize()
     assert _flash_close(got, want)
 
 
