@@ -30,18 +30,24 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 and under ``torch.profiler`` (the device's busy time by
                 kernel, its idle share, the TAOM kernel's time per
                 request);
-  4. ssd      — hold the SSD-scan kernel against its plain PyTorch version
+  4. ssd      — hold the SSD scan's three kernels (chunk state, state
+                pass, chunk out) against their plain PyTorch version
                 (``ops._ssd_chunked``) on the card within rtol 1e-4 and
                 atol 1e-4 * max|plain|: the mamba2-130m width (BH 96, L
                 1024, P 64, S 128, Q 128), the smoke config's (P 16, S 16,
-                Q 8), zamba2's (P 64, S 64) and a ragged L (1000) through
-                ``ops.ssd_scan``; then time kernel and plain version at the
-                full width (CUDA graph replay) beside the bound;
+                Q 8), zamba2's (P 64, S 64), a ragged L (1000) through
+                ``ops.ssd_scan``, the largest head (P 128), Q 100, a single
+                chunk (L == Q) and a fast decay (a ~ -30); then time the
+                kernels and the plain version at the full width (CUDA graph
+                replay) beside the bound, split the kernels' time by kernel
+                (torch.profiler), and print each kernel's resident blocks
+                an SM and the workspace's bytes;
   5. mamba    — serve mamba2-130m at its full width through
                 ``launch/serve.serve`` (24 layers, d_model 768, seeded
                 random bf16 weights, batch 4, prompt 1000, 16 greedy
-                tokens): tokens in range, the SSD kernel launched once per
-                layer in the prefill and never in decode; in a float32 copy
+                tokens): tokens in range, the SSD wrapper called once per
+                layer in the prefill (three kernels each: 72 in the
+                profile) and never in decode; in a float32 copy
                 of the config the kernel's prefill and 4 decode steps agree
                 with the plain version's; a prefill under a HEANA photonic
                 ctx (6-bit, noise off) is bit-equal between the TAOM kernel
@@ -100,10 +106,14 @@ REQUESTS = 20                    # bucket-32 requests timed and profiled
 LM_ARCH = "mamba2-130m"          # phase 5's model, at its full width
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1000, 16
 SSD_TOL = 1e-4                   # rtol, and atol as a share of max|plain|
-# Phase 4's shapes (BH, L, P, S, Q): mamba2-130m at LM_BATCH (the shape
-# timed), the smoke config's, zamba2's head and state, and a ragged L.
-SSD_SHAPES = ((96, 1024, 64, 128, 128), (8, 64, 16, 16, 8),
-              (24, 512, 64, 64, 128), (96, 1000, 64, 128, 128))
+# Phase 4's shapes (BH, L, P, S, Q, decay): mamba2-130m at LM_BATCH (the
+# shape timed), the smoke config's, zamba2's head and state, a ragged L,
+# the largest head, a chunk that is not a multiple of 4, a single chunk,
+# and a = -30 exp(N(0, 1)) (exp underflows inside a chunk).
+SSD_SHAPES = ((96, 1024, 64, 128, 128, 1.0), (8, 64, 16, 16, 8, 1.0),
+              (24, 512, 64, 64, 128, 1.0), (96, 1000, 64, 128, 128, 1.0),
+              (4, 256, 128, 128, 128, 1.0), (4, 300, 64, 128, 100, 1.0),
+              (8, 128, 64, 128, 128, 1.0), (96, 1024, 64, 128, 128, 30.0))
 QWEN_ARCH = "qwen2-0.5b"         # phase 7's model, at its full width
 FLASH_TOL = 1e-5                 # float32: rtol, and atol * max|plain|
 # Phase 6's shapes (BH, S, D, causal, window, dtype): qwen2-0.5b's served
@@ -187,11 +197,12 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def profile(fn, runs: int, kernel: str) -> dict:
+def profile(fn, runs: int, kernel: str, split=()) -> dict:
     """Run fn() ``runs`` times under torch.profiler and split the device's
     time per run: busy (sum of kernel times), idle share of the span from
-    the first kernel's start to the last one's end, and the time and
-    launches of the kernels whose name holds ``kernel``."""
+    the first kernel's start to the last one's end, the time and launches
+    of the kernels whose name holds ``kernel``, and the time of those whose
+    name holds each of ``split``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -223,6 +234,9 @@ def profile(fn, runs: int, kernel: str) -> dict:
         "kernel_ms_per_run": ours_us / runs / 1e3,
         "kernel_launches_per_run": len(ours) / runs,
         "kernel_share_of_device_busy": ours_us / busy_us,
+        "split_ms_per_run": {
+            part: sum(e.time_range.elapsed_us() for e in ours
+                      if part in e.name) / runs / 1e3 for part in split},
     }
 
 
@@ -249,31 +263,32 @@ def ssd_phase(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
 
-    def inputs(bh, l, p, s):
+    def inputs(bh, l, p, s, decay=1.0):
         x = torch.randn((bh, l, p), generator=gen, device=dev)
         dt = torch.logaddexp(torch.randn((bh, l), generator=gen, device=dev),
                              torch.zeros((), device=dev))
-        a = -torch.exp(torch.randn((bh,), generator=gen, device=dev))
+        a = -decay * torch.exp(torch.randn((bh,), generator=gen, device=dev))
         b = torch.randn((bh, l, s), generator=gen, device=dev)
         c = torch.randn((bh, l, s), generator=gen, device=dev)
         return x, dt, a, b, c
 
     max_err = 0.0
-    for bh, l, p, s, q in SSD_SHAPES:
-        args = inputs(bh, l, p, s)
+    for bh, l, p, s, q, decay in SSD_SHAPES:
+        args = inputs(bh, l, p, s, decay)
         got = ops.ssd_scan(*args, chunk=q, impl="kernel")
         want = ops.ssd_scan(*args, chunk=q, impl="ref")
         torch.cuda.synchronize()
         for name, g, w in zip(("y", "state"), got, want):
             scale = w.abs().max().item()
             err = (g - w).abs().max().item()
-            ok = torch.allclose(g, w, rtol=SSD_TOL, atol=SSD_TOL * scale)
-            log(f"[ssd] BH={bh} L={l} P={p} S={s} Q={q} {name}: "
+            ok = (torch.allclose(g, w, rtol=SSD_TOL, atol=SSD_TOL * scale)
+                  and bool(torch.isfinite(g).all()))
+            log(f"[ssd] BH={bh} L={l} P={p} S={s} Q={q} a*{decay:g} {name}: "
                 f"max |kernel - plain| = {err:.3e} (max |plain| "
                 f"{scale:.3e}; rtol {SSD_TOL}, atol {SSD_TOL} * max|plain|)")
-            assert ok, (bh, l, p, s, q, name, err, scale)
+            assert ok, (bh, l, p, s, q, decay, name, err, scale)
             max_err = max(max_err, err)
-    bh, l, p, s, q = SSD_SHAPES[0]
+    bh, l, p, s, q, _ = SSD_SHAPES[0]
     args = inputs(bh, l, p, s)
     kernel = lambda: ssd_scan.ssd_scan_chunked(*args, chunk=q)  # noqa: E731
     plain = lambda: ops._ssd_chunked(*args, q)                  # noqa: E731
@@ -283,9 +298,22 @@ def ssd_phase(dev) -> dict:
            **ssd_bound(bh, l, p, s, q)}
     log("[ssd] BH={} L={} P={} S={} Q={}: kernel_ms={ms:.5f} "
         "plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}; "
-        "bytes {bytes_ms:.5f}, operations {ops_ms:.5f}) per launch (device "
-        "times, CUDA graph replay); library_ms: none (no single PyTorch "
-        "call computes the scan)".format(bh, l, p, s, q, **row))
+        "bytes {bytes_ms:.5f}, operations {ops_ms:.5f}) per call of the "
+        "three kernels (device times, CUDA graph replay); library_ms: none "
+        "(no single PyTorch call computes the scan)".format(bh, l, p, s, q,
+                                                            **row))
+    split = profile(kernel, 20, "ssd_scan", split=ssd_scan.KERNELS)
+    assert split["kernel_launches_per_run"] == len(ssd_scan.KERNELS), split
+    row["split_ms"] = split["split_ms_per_run"]
+    row["profiled_ms"] = split["kernel_ms_per_run"]
+    log(f"[ssd] per-kernel device ms per call (torch.profiler, 20 eager "
+        f"calls; {row['profiled_ms']:.5f} ms together): " +
+        json.dumps(row["split_ms"], sort_keys=True))
+    blocks = {w: ssd_scan.occupancy(w) for w in (p, 128)}
+    workspace = 4 * ssd_scan.workspace_floats(bh, l, p, s, q)
+    log(f"[ssd] resident blocks an SM (cudaOccupancyMaxActiveBlocksPer"
+        f"Multiprocessor) by head width: " + json.dumps(blocks, sort_keys=True)
+        + f"; workspace {workspace} bytes at the served shape")
     return row
 
 
@@ -325,7 +353,7 @@ def lm_phase(dev) -> dict:
     in_decode = ssd_scan.LAUNCHES - in_prefill
     assert in_prefill == cfg.num_layers and in_decode == 0, (in_prefill,
                                                              in_decode)
-    log(f"[mamba] SSD kernel launches: {in_prefill} in one prefill "
+    log(f"[mamba] SSD wrapper launches: {in_prefill} in one prefill "
         f"({cfg.num_layers} layers), {in_decode} in 3 decode steps; "
         f"bf16 logits finite")
 
@@ -396,9 +424,14 @@ def lm_phase(dev) -> dict:
                        ssm_impl="kernel")
 
     prefill()
-    split = profile(prefill, 3, "ssd_scan")
+    split = profile(prefill, 3, "ssd_scan", split=ssd_scan.KERNELS)
     log("[mamba] one prefill under torch.profiler (3 runs): " +
         json.dumps(split, sort_keys=True))
+    kernels = len(ssd_scan.KERNELS) * cfg.num_layers
+    assert split["kernel_launches_per_run"] == kernels, split
+    log(f"[mamba] the profiler counts {split['kernel_launches_per_run']:g} "
+        f"ssd_scan kernels a prefill ({len(ssd_scan.KERNELS)} per wrapper "
+        f"call x {cfg.num_layers} layers)")
     step = profile(lambda: zoo.decode_fn(params, tok, LM_PROMPT + 3, cfg,
                                          state), 3, "ssd_scan")
     log("[mamba] one decode step under torch.profiler (3 runs): " +
@@ -423,7 +456,7 @@ def lm_phase(dev) -> dict:
         f"gen {LM_GEN}): prefill {res.prefill_s * 1e3:.3f} ms, decode "
         f"{res.decode_s * 1e3:.3f} ms for {LM_GEN - 1} steps "
         f"({res.tokens_per_s:.1f} tokens/s), host clock, synchronized; "
-        f"{launches} SSD kernel launches")
+        f"{launches} SSD wrapper calls")
     return {"launches": launches, "profile": split}
 
 
@@ -899,7 +932,7 @@ def main() -> int:
                        "single PyTorch call, not the same function",
         "per": "one resnet_mini forward at batch 32 (13 GEMMs)",
     }
-    bh, l, p, s, q = SSD_SHAPES[0]
+    bh, l, p, s, q, _ = SSD_SHAPES[0]
     ssd_entry = {
         "name": "ssd_scan_chunked",
         "route": "cuda",
@@ -907,18 +940,19 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:81",
         "launches": lm["launches"],
         "max_abs_err": ssd["max_abs_err"],
-        # Per launch at the full-width shape, device time (CUDA graph
-        # replay); path_ms is the profiler's SSD time in one served prefill
-        # divided by its launches.
+        # Per wrapper call (three kernels) at the full-width shape, device
+        # time (CUDA graph replay); split_ms is the profiler's time of each
+        # kernel per call; path_ms is the profiler's SSD time in one served
+        # prefill divided by its wrapper calls.
         "ms": ssd["ms"],
-        "path_ms": (lm["profile"]["kernel_ms_per_run"] /
-                    lm["profile"]["kernel_launches_per_run"]),
+        "split_ms": ssd["split_ms"],
+        "path_ms": lm["profile"]["kernel_ms_per_run"] / lm["launches"],
         "plain_ms": ssd["plain_ms"],
         "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"],
         # No single PyTorch call computes the SSD scan.
         "library_ms": None,
-        "per": f"one launch at BH={bh}, L={l}, P={p}, S={s}, Q={q} (one "
+        "per": f"one call at BH={bh}, L={l}, P={p}, S={s}, Q={q} (one "
                f"{LM_ARCH} layer's prefill at batch {LM_BATCH}, prompt "
                f"{LM_PROMPT} padded to {l})",
     }

@@ -1,7 +1,7 @@
 """Hopper kernel: Mamba2 SSD (state-space duality) chunked scan.
 
 Replaces the TPU kernel ``repro.kernels.ssd_scan.ssd_scan_chunked``
-(Pallas body ``_ssd_kernel``) with a CUDA C++ kernel for sm_90a,
+(Pallas body ``_ssd_kernel``) with CUDA C++ kernels for sm_90a,
 ``csrc/ssd_scan.cu``, built with ``nvcc`` at first use into
 ``kernels/_build/`` (``kernels/nvcc.py``) and bound through a plain C entry
 point loaded with ``ctypes``.
@@ -13,17 +13,27 @@ inter-chunk term exp(cum_t) C state^T, and the carried state
 exp(cum_end) state + sum_s exp(cum_end - cum_s) dt_s x_s (outer) b_s —
 the chunks of a sequence in order.
 
-Bound on this card: operations (~130 float32 flops a byte at the
-mamba2-130m width, P = 64, S = Q = 128).  A block owns one sequence and
-up to 64 columns of P, walks its chunks in order with the state and the
-chunk's b, c (transposed) and x in shared memory, and runs the chunk's
-four products as register-tiled matrix products (see the source's
-header).  It takes S a multiple of 4 (b and c rows are read as 16-byte
-vectors) and P, S, Q up to 128.
+Bound on this card: operations (5.66 GFLOP at mamba2-130m's served shape,
+BH 96, L 1024, P 64, S = Q = 128: 0.0844 ms at the 67 TFLOP/s float32
+rate).  The work stays float32 on the CUDA cores, as the float32 contract
+(rtol 1e-4 against the plain version) asks; no tensor cores.  One call
+launches three chunk-parallel kernels (see the source's header): the
+chunks' own states and decays, grid (sequence, chunk); a pass that
+carries the state across each sequence's chunks, grid (sequence, tiles of
+P x S); and each chunk's output from its scores and its incoming state,
+grid (sequence, chunk).  Their own floor at the served shape is ~0.11 ms,
+since the chunk states pass through device memory.  The workspace for
+that (float32: the chunk states (BH, L/Q, P, S), cum (BH, L), the decays
+(BH, L/Q); ``workspace_floats``) is allocated here with ``torch.empty``
+on the input's device; the kernels allocate nothing, so a call can be
+captured in a CUDA graph.  It takes S a multiple of 4 (b and c rows are
+read as 16-byte vectors) and P, S, Q up to 128; x may start at any float
+(its rows are read as 16-byte vectors only when P % 4 == 0 and x is
+16-byte aligned).
 
 On a CPU tensor the wrapper runs the plain PyTorch version
-(``kernels.ops._ssd_chunked``); on a CUDA tensor it launches the kernel or
-raises.
+(``kernels.ops._ssd_chunked``); on a CUDA tensor it launches the kernels
+or raises.
 """
 from __future__ import annotations
 
@@ -45,9 +55,14 @@ MAX_CHUNK = 128
 MAX_STATE = 128
 MAX_HEAD = 128
 
-#: Launches of the CUDA kernel (the plain version does not count);
-#: ``chip_smoke.py`` sets it to 0 and reads it to show that the served
-#: prefill ran through the kernel.
+#: The CUDA kernels one call launches, in order (each name holds
+#: ``ssd_scan``, so a profile counts them all).
+KERNELS = ("ssd_scan_chunk_state_kernel", "ssd_scan_state_pass_kernel",
+           "ssd_scan_chunk_out_kernel")
+
+#: Calls that launched the CUDA kernels (the plain version does not
+#: count); ``chip_smoke.py`` sets it to 0 and reads it to show that the
+#: served prefill ran through the kernels.
 LAUNCHES = 0
 
 _LIB = None
@@ -65,11 +80,32 @@ def _library():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()[0]))
             fn = lib.ssd_scan_f32
-            fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 +
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 +
                            [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+            occ = lib.ssd_scan_occupancy
+            occ.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            occ.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def workspace_floats(bh: int, l: int, p: int, s: int, chunk: int) -> int:
+    """Floats of the kernels' workspace: the chunk states (then the
+    incoming states) (BH, L/Q, P, S), cum (BH, L), the decays (BH, L/Q)."""
+    nc = l // chunk
+    return bh * nc * p * s + bh * l + bh * nc
+
+
+def occupancy(p: int) -> dict:
+    """Resident blocks an SM of each kernel at head width ``p`` on the
+    current CUDA device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and the chunk-out block's dynamic shared memory in bytes."""
+    out = (ctypes.c_int * 4)()
+    err = _library().ssd_scan_occupancy(p, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_occupancy failed: CUDA error {err}")
+    return {**dict(zip(KERNELS, out[:3])), "chunk_out_smem_bytes": out[3]}
 
 
 def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -120,11 +156,13 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     y = torch.empty((bh, l, p), dtype=torch.float32, device=x.device)
     state = torch.empty((bh, p, s), dtype=torch.float32, device=x.device)
+    ws = torch.empty(workspace_floats(bh, l, p, s, chunk),
+                     dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _library().ssd_scan_f32(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), state.data_ptr(), bh, l, p, s, chunk,
-        stream)
+        c.data_ptr(), y.data_ptr(), state.data_ptr(), ws.data_ptr(), bh, l,
+        p, s, chunk, stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_f32 launch failed: CUDA error {err} "
                            f"(BH={bh}, L={l}, P={p}, S={s}, Q={chunk})")

@@ -105,12 +105,12 @@ def test_zoo_kernel_path_equals_plain_path_on_card(cuda, name):
     torch.testing.assert_close(exact, direct, rtol=1e-4, atol=1e-4)
 
 
-def _ssd_inputs(cuda, bh, l, p, s, seed):
+def _ssd_inputs(cuda, bh, l, p, s, seed, decay=1.0):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(bh, l, p, generator=gen, device=cuda)
     dt = torch.logaddexp(torch.randn(bh, l, generator=gen, device=cuda),
                          torch.zeros((), device=cuda))
-    a = -torch.exp(torch.randn(bh, generator=gen, device=cuda))
+    a = -decay * torch.exp(torch.randn(bh, generator=gen, device=cuda))
     b = torch.randn(bh, l, s, generator=gen, device=cuda)
     c = torch.randn(bh, l, s, generator=gen, device=cuda)
     return x, dt, a, b, c
@@ -121,20 +121,63 @@ def _ssd_close(got, want):
                           atol=1e-4 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("bh,l,p,s,chunk", [
-    (96, 1024, 64, 128, 128),     # mamba2-130m, batch 4
-    (8, 64, 16, 16, 8),           # the smoke config
-    (24, 512, 64, 64, 128),       # zamba2's head and state
-    (8, 1000, 64, 128, 128),      # ragged L through ops.ssd_scan
-    (3, 40, 16, 24, 16), (2, 33, 8, 8, 16)])
-def test_ssd_kernel_matches_plain_on_card(cuda, bh, l, p, s, chunk):
-    x, dt, a, b, c = _ssd_inputs(cuda, bh, l, p, s, seed=l + p)
+@pytest.mark.parametrize("bh,l,p,s,chunk,decay", [
+    (96, 1024, 64, 128, 128, 1.0),    # mamba2-130m, batch 4
+    (8, 64, 16, 16, 8, 1.0),          # the smoke config
+    (24, 512, 64, 64, 128, 1.0),      # zamba2's head and state
+    (8, 1000, 64, 128, 128, 1.0),     # ragged L through ops.ssd_scan
+    (3, 40, 16, 24, 16, 1.0), (2, 33, 8, 8, 16, 1.0),
+    (4, 256, 128, 128, 128, 1.0),     # the largest head, P = 128
+    (4, 300, 64, 128, 100, 1.0),      # Q = 100, not a multiple of 4
+    (8, 128, 64, 128, 128, 1.0),      # a single chunk, L == Q
+    (8, 512, 64, 128, 128, 30.0)])    # fast decay: exp underflows in a chunk
+def test_ssd_kernel_matches_plain_on_card(cuda, bh, l, p, s, chunk, decay):
+    x, dt, a, b, c = _ssd_inputs(cuda, bh, l, p, s, seed=l + p, decay=decay)
     before = ssd_scan.LAUNCHES
     y, st = ops.ssd_scan(x, dt, a, b, c, chunk=chunk, impl="kernel")
     assert ssd_scan.LAUNCHES == before + 1
     want_y, want_st = ops.ssd_scan(x, dt, a, b, c, chunk=chunk, impl="ref")
     torch.cuda.synchronize()
     assert y.shape == (bh, l, p) and st.shape == (bh, p, s)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    assert _ssd_close(y, want_y) and _ssd_close(st, want_st)
+
+
+def test_ssd_kernel_replays_in_a_cuda_graph_on_card(cuda):
+    # The three kernels and their workspace inside one captured call:
+    # replayed on fresh inputs, the graph gives what an eager call gives.
+    bh, l, p, s, q = 8, 512, 64, 128, 128
+    args = _ssd_inputs(cuda, bh, l, p, s, seed=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd_scan.ssd_scan_chunked(*args, chunk=q)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, st = ssd_scan.ssd_scan_chunked(*args, chunk=q)
+    for seed in (4, 5):
+        for dst, src in zip(args, _ssd_inputs(cuda, bh, l, p, s, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        want_y, want_st = ssd_scan.ssd_scan_chunked(*args, chunk=q)
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(st, want_st), seed
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ssd_kernel_takes_x_off_a_16_byte_boundary_on_card(cuda, offset):
+    # A contiguous x view that starts inside a float4 is read one float at
+    # a time: the wrapper accepts it and the kernels give what they give on
+    # an aligned copy.
+    bh, l, p, s, q = 4, 256, 64, 128, 128
+    x, dt, a, b, c = _ssd_inputs(cuda, bh, l, p, s, seed=offset)
+    buf = torch.empty(x.numel() + offset, device=cuda)
+    xs = buf[offset:].view(x.shape).copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    y, st = ssd_scan.ssd_scan_chunked(xs, dt, a, b, c, chunk=q)
+    want_y, want_st = ops._ssd_chunked(x, dt, a, b, c, q)
+    torch.cuda.synchronize()
     assert _ssd_close(y, want_y) and _ssd_close(st, want_st)
 
 

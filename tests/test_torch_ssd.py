@@ -62,7 +62,10 @@ def _naive_torch(x, dt, a, b, c):
 
 CASES = [(2, 32, 8, 16, 8), (3, 40, 16, 24, 16), (1, 128, 64, 32, 128),
          (2, 33, 8, 8, 16),                  # ragged L -> padding path
-         (1, 256, 64, 128, 128)]             # mamba2-130m head and state
+         (1, 256, 64, 128, 128),             # mamba2-130m head and state
+         (1, 256, 128, 32, 128),             # the largest head, P = 128
+         (2, 300, 16, 16, 100),              # Q = 100, not a multiple of 4
+         (2, 64, 8, 12, 64)]                 # a single chunk, L == Q
 
 
 @pytest.mark.parametrize("bh,l,p,s,chunk", CASES)
