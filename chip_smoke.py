@@ -9,27 +9,36 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 csrc/taom_gemm.cu``, ``ssd_scan.cu`` and
                 ``flash_attention.cu``, with nvcc (sm_90a), the three nvcc
                 processes started together, and print the times;
-  2. kernel   — hold the kernel against its plain PyTorch version on the
-                card: both policies (HEANA analog carry, AMW chunk-ADC),
-                noise on and off, bits 6 and 8, every resnet_mini GEMM of
-                the served bucket-32 plan at the tile that plan gives it
-                (N=83), plus a ragged C>=3 shape; bit-equal wherever the
-                integer psums stay below 2^24 (asserted on the inputs); one
-                shape at two tilings; then time the kernel, its plain
-                version and torch.matmul at those shapes and tiles with
-                noise off, as served (device time from CUDA graph replay,
-                and time per eager call) beside the bound;
+  2. kernel   — hold the TAOM kernels against their plain PyTorch
+                versions on the card.  The float32 body: both policies
+                (HEANA analog carry, AMW chunk-ADC), noise on and off, bits
+                6 and 8, every resnet_mini GEMM of the served bucket-32
+                plan at the tile that plan gives it (N=83), plus a ragged
+                C>=3 shape; bit-equal wherever the integer psums stay below
+                2^24 (asserted on the inputs); one shape at two tilings.
+                The fused int8 route (quantize, GEMM, rescale in two
+                kernels): both policies, noise on and off, float32 and bf16
+                x, at every plan shape and the photonic mamba2-130m GEMMs
+                (M cut to 512), bit-equal to ``ref.photonic_gemm_reference``.
+                Then time, per plan GEMM (noise off, as served) and at the
+                photonic LM's two GEMMs (M 4000, bf16): the fused route
+                (with the profiler's split between its absmax and int8
+                kernels), the float32 body with PyTorch's quantize and
+                rescale, that body alone, the plain route and torch.matmul
+                (device time from CUDA graph replay, and time per eager
+                call) beside the bound (x, w and the output once at 3.35
+                TB/s against 2 M K D operations at 1,979 TOP/s int8);
   3. serving  — ServingEngine for resnet_mini (seeded random weights, the
                 paper's equal-area HEANA point, 6-bit, noise off,
                 max_batch 64) warms up and serves requests of 1, 3, 17, 64
                 and 100 images; the logits must equal the plain-version
                 path (``execute_cnn(impl="ref")``) bit for bit, and the
-                kernel must have launched 13 times per bucket forward; one
-                noisy request served twice from one seed must be finite
-                and identical; then bucket-32 requests on the host clock
-                and under ``torch.profiler`` (the device's busy time by
-                kernel, its idle share, the TAOM kernel's time per
-                request);
+                TAOM wrapper must have been called 13 times per bucket
+                forward; one noisy request served twice from one seed must
+                be finite and identical; then bucket-32 requests on the
+                host clock and under ``torch.profiler`` (the device's busy
+                time by kernel, its idle share, kernels per request, the
+                TAOM route's two kernels per request);
   4. ssd      — hold the SSD scan's three kernels (chunk state, state
                 pass, chunk out) against their plain PyTorch version
                 (``ops._ssd_chunked``) on the card within rtol 1e-4 and
@@ -50,9 +59,11 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 profile) and never in decode; in a float32 copy
                 of the config the kernel's prefill and 4 decode steps agree
                 with the plain version's; a prefill under a HEANA photonic
-                ctx (6-bit, noise off) is bit-equal between the TAOM kernel
-                and its plain version; prefill/decode times on the host
-                clock and a profile of one prefill and one decode step;
+                ctx (6-bit, noise off) is bit-equal between the TAOM
+                kernels and their plain version, and is profiled (device
+                busy, the TAOM route's share, 96 kernels); prefill/decode
+                times on the host clock and a profile of one prefill and
+                one decode step;
   6. flash    — hold the flash-attention kernel against its plain PyTorch
                 version (``ops._flash_blocked``) on the card: qwen2-0.5b's
                 served shape (BH 64 = batch 4 x 16 padded heads, S 1000, D
@@ -100,11 +111,17 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # the same, f32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # the same, bf16 dense on the tensor cores
+INT8_OPS_PER_S = 1979e12         # the same, int8 dense on the tensor cores
 EXACT_LIMIT = 2.0 ** 24
 BATCH = 32                       # the bucket whose shapes phase 2 uses
 REQUESTS = 20                    # bucket-32 requests timed and profiled
 LM_ARCH = "mamba2-130m"          # phase 5's model, at its full width
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1000, 16
+# The photonic mamba2-130m prefill's two GEMMs (batch x prompt rows, bf16):
+# in_proj d_model -> 2 d_inner + 2 ngroups d_state + nheads, out_proj
+# d_inner -> d_model.  Phase 5 checks them against the model's weights.
+TAOM_LM_SHAPES = (("in_proj", LM_BATCH * LM_PROMPT, 768, 3352),
+                  ("out_proj", LM_BATCH * LM_PROMPT, 1536, 768))
 SSD_TOL = 1e-4                   # rtol, and atol as a share of max|plain|
 # Phase 4's shapes (BH, L, P, S, Q, decay): mamba2-130m at LM_BATCH (the
 # shape timed), the smoke config's, zamba2's head and state, a ragged L,
@@ -238,6 +255,104 @@ def profile(fn, runs: int, kernel: str, split=()) -> dict:
             part: sum(e.time_range.elapsed_us() for e in ours
                       if part in e.name) / runs / 1e3 for part in split},
     }
+
+
+def taom_bound(m: int, k: int, d: int, elt_bytes: int,
+               noise_floats: int = 0) -> dict:
+    """Least time for one photonic GEMM: x (M, K) and w (K, D) read once
+    and the (M, D) output written once in the operands' type (plus the
+    float32 noise when it is on), against 2 M K D operations at the int8
+    tensor-core rate."""
+    nbytes = elt_bytes * (m * k + k * d + m * d) + 4 * noise_floats
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * m * k * d / INT8_OPS_PER_S * 1e3
+    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def taom_times(name, x, w, cfg, block_m: int, block_d: int,
+               unaligned: bool = False) -> dict:
+    """One photonic GEMM (noise off, as served) three ways: the fused int8
+    route (two kernels; the profiler splits them), the float32 body with
+    PyTorch's quantize and rescale around it (the unfused route, which
+    8-bit operands still take), and the plain route; device times from
+    CUDA graph replay beside the bound.  The first two must agree bit for
+    bit with the plain route.  ``unaligned`` also times the fused route on
+    a copy of x one element off a 16-byte boundary, which it reads with
+    synchronous loads instead of cp.async."""
+    import torch
+    from repro_torch.core.taom import quantize
+    from repro_torch.kernels import ref, taom_gemm
+    m, k = x.shape
+    d = w.shape[1]
+    fs = taom_gemm.calibrated_adc_fs(k, cfg)
+    xq, sx = quantize(x.float(), cfg.bits)
+    wq, sw = quantize(w.float(), cfg.bits, axis=0)
+    xq, wq = xq.contiguous(), wq.contiguous()
+
+    def fused():
+        return taom_gemm.taom_gemm_fused(x, w, None, cfg, fs,
+                                         block_m=block_m, block_d=block_d)
+
+    def f32_body():
+        return taom_gemm.taom_gemm_quantized(xq, wq, None, cfg, fs,
+                                             block_m=block_m, block_d=block_d)
+
+    def f32_route():
+        xq_, sx_ = quantize(x.float(), cfg.bits)
+        wq_, sw_ = quantize(w.float(), cfg.bits, axis=0)
+        acc = taom_gemm.taom_gemm_quantized(
+            xq_.contiguous(), wq_.contiguous(), None, cfg, fs,
+            block_m=block_m, block_d=block_d)
+        return (acc * (sx_ * sw_)).to(x.dtype)
+
+    def plain():
+        return ref.photonic_gemm_reference(x, w, None, cfg, fs)
+
+    want = plain()
+    for route in (fused, f32_route):
+        got = route()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, route.__name__, (
+            got.float() - want.float()).abs().max().item())
+    split = profile(fused, 20, "taom_gemm", split=taom_gemm.KERNELS)
+    assert split["kernel_launches_per_run"] == 2, split
+    row = {"gemm": name, "m": m, "k": k, "d": d,
+           "chunks": -(-k // cfg.dpe_size), "dtype": str(x.dtype)[6:],
+           "plan": {key: taom_gemm.int8_plan(m, k, d, cfg.dpe_size,
+                                             block_d)[key]
+                    for key in ("width", "warps", "tile_m", "grid")},
+           "fused_ms": device_ms(fused),
+           "split_ms": split["split_ms_per_run"],
+           "f32_route_ms": device_ms(f32_route),
+           "f32_body_ms": device_ms(f32_body),
+           "plain_ms": device_ms(plain),
+           "matmul_ms": device_ms(lambda: torch.matmul(x, w)),
+           "fused_call_ms": call_ms(fused),
+           "f32_route_call_ms": call_ms(f32_route)}
+    if unaligned:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        x_off = buf[1:].view(m, k).copy_(x)
+        assert x_off.data_ptr() % 16
+        sync = lambda: taom_gemm.taom_gemm_fused(             # noqa: E731
+            x_off, w, None, cfg, fs, block_m=block_m, block_d=block_d)
+        assert torch.equal(sync(), want), name
+        row["fused_sync_ms"] = device_ms(sync)
+    row.update(taom_bound(m, k, d, x.element_size()))
+    log("[kernel] {gemm} M={m} K={k} D={d} C={chunks} {dtype} plan={plan}: "
+        "fused_ms={fused_ms:.5f} (split {split_ms}) f32_route_ms="
+        "{f32_route_ms:.5f} (f32 body alone {f32_body_ms:.5f}) plain_ms="
+        "{plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        "library_ms(torch.matmul, the nearest single PyTorch call, not "
+        "the same function)={matmul_ms:.5f} (device times, CUDA graph "
+        "replay); per eager call: fused {fused_call_ms:.5f} f32 route "
+        "{f32_route_call_ms:.5f}".format(**row))
+    if unaligned:
+        log(f"[kernel] {name}: fused route on x one element off a 16-byte "
+            f"boundary (synchronous loads, no cp.async for x): "
+            f"{row['fused_sync_ms']:.5f} ms")
+    return row
 
 
 def ssd_bound(bh: int, l: int, p: int, s: int, q: int) -> dict:
@@ -410,11 +525,34 @@ def lm_phase(dev) -> dict:
     for key in ("conv", "ssm"):
         assert torch.equal(sk["layers"]["mamba"][key],
                            sr["layers"]["mamba"][key]), key
+    layer = params["mamba"]["stack"]["mamba"]
+    shapes = [(LM_BATCH * LM_PROMPT,) + tuple(layer[key]["w"].shape[-2:])
+              for key in ("in_proj", "out_proj")]
+    assert shapes == [row[1:] for row in TAOM_LM_SHAPES], shapes
     log(f"[mamba] photonic ctx (HEANA, 6-bit, N=83, noise off) prefill of "
-        f"{tuple(prompts.shape)} tokens: bit-equal between the TAOM kernel "
-        f"({2 * cfg.num_layers} launches, K up to {k_max}, D up to "
-        f"{params['mamba']['stack']['mamba']['in_proj']['w'].shape[-1]}) "
-        f"and its plain version (|psum| <= {pcfg.qmax}^2 * {k_max} < 2^24)")
+        f"{tuple(prompts.shape)} tokens: bit-equal between the TAOM kernels "
+        f"({2 * cfg.num_layers} wrapper calls, (M, K, D) {shapes}) and "
+        f"the plain version (|psum| <= {pcfg.qmax}^2 * 83 < 2^24)")
+
+    # Profile of one photonic prefill through the TAOM kernels (the fused
+    # int8 route: two kernels a GEMM).
+    def photonic_prefill():
+        caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
+        zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg, caches,
+                       ctx=PhotonicCtx(cfg=pcfg, impl="kernel"),
+                       ssm_impl="kernel")
+
+    photonic = profile(photonic_prefill, 3, "taom_gemm",
+                       split=taom_gemm.KERNELS)
+    assert photonic["kernel_launches_per_run"] == 4 * cfg.num_layers, (
+        photonic)
+    log("[mamba] one photonic prefill under torch.profiler (3 runs): " +
+        json.dumps(photonic, sort_keys=True))
+    log(f"[mamba] photonic prefill: TAOM route "
+        f"{photonic['kernel_ms_per_run']:.5f} ms "
+        f"({photonic['kernel_share_of_device_busy']:.1%} of "
+        f"{photonic['device_busy_ms_per_run']:.3f} ms device busy; "
+        f"{photonic['kernel_launches_per_run']:g} kernels)")
 
     # Profile of one bf16 prefill (the served one, kernel SSD).
     def prefill():
@@ -457,7 +595,7 @@ def lm_phase(dev) -> dict:
         f"{res.decode_s * 1e3:.3f} ms for {LM_GEN - 1} steps "
         f"({res.tokens_per_s:.1f} tokens/s), host clock, synchronized; "
         f"{launches} SSD wrapper calls")
-    return {"launches": launches, "profile": split}
+    return {"launches": launches, "profile": split, "photonic": photonic}
 
 
 def flash_bound(bh: int, s: int, d: int, causal: bool, window: int,
@@ -795,35 +933,55 @@ def main() -> int:
     log(f"[kernel] ({m}, {k}, {d}) equal at tile widths "
         f"{taom_gemm.kernel_tile(d, bd)} and {taom_gemm.kernel_tile(d, 8)}")
 
+    # The fused int8 route (bits <= 7) against its plain version
+    # (quantize, chunked GEMM, rescale): every plan shape and the photonic
+    # LM's, both policies, noise on and off, float32 and bf16 x.
+    fused_cases = sorted({(m, k, d, bd) for _, m, k, d, _, bd in path})
+    fused_cases += [(512, k, d, 128) for _, _, k, d in TAOM_LM_SHAPES]
+    n_fused = 0
+    for m, k, d, bd in fused_cases:
+        for backend in (Backend.HEANA, Backend.AMW):
+            cfg = PhotonicConfig(backend=backend, bits=6, dpe_size=83,
+                                 noise_enabled=True)
+            assert cfg.qmax ** 2 * min(k, 83) < EXACT_LIMIT
+            fs = taom_gemm.calibrated_adc_fs(k, cfg)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                w = torch.randn((k, d), generator=gen, device=dev).to(dtype)
+                for noise in (noise_for(cfg, m, k, d), None):
+                    got = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs,
+                                                    block_d=bd)
+                    want = ref.photonic_gemm_reference(x, w, noise, cfg, fs)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    max_err = max(max_err, err)
+                    assert err == 0.0, (m, k, d, backend, dtype, err)
+                    n_fused += 1
+    log(f"[kernel] fused int8 route: {n_fused} cases bit-equal to the "
+        f"plain version (quantize, chunked GEMM, rescale)")
+
     # Times at the main path's shapes, tiles and config (6-bit HEANA,
-    # noise off: no noise tensor is read, as on the path).
+    # noise off: no noise tensor is read, as on the path), then at the
+    # photonic LM's (bf16, the default tile).
     rows = []
     for name, m, k, d, bm, bd in path:
-        xq, wq = operands(m, k, d, 6)
-        fs = taom_gemm.calibrated_adc_fs(k, main_cfg)
-        nbytes = 4 * (m * k + k * d + m * d)
-        kernel = lambda: taom_gemm.taom_gemm_quantized(      # noqa: E731
-            xq, wq, None, main_cfg, fs, block_m=bm, block_d=bd)
-        plain = lambda: ref.taom_gemm_reference(              # noqa: E731
-            xq, wq, None, main_cfg, fs)
-        matmul = lambda: torch.matmul(xq, wq)                 # noqa: E731
-        row = {
-            "gemm": name, "m": m, "k": k, "d": d, "chunks": -(-k // 83),
-            "width": taom_gemm.kernel_tile(d, bd),
-            "kernel_ms": device_ms(kernel), "plain_ms": device_ms(plain),
-            "matmul_ms": device_ms(matmul),
-            "kernel_call_ms": call_ms(kernel), "plain_call_ms": call_ms(plain),
-            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "ops_ms": 2.0 * m * k * d / F32_FLOPS_PER_S * 1e3,
-        }
-        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-        rows.append(row)
-        log("[kernel] {gemm} M={m} K={k} D={d} C={chunks} width={width}: "
-            "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
-            "library_ms(torch.matmul, the nearest single PyTorch call, not "
-            "the same function)={matmul_ms:.5f} bound_ms={bound_ms:.5f} "
-            "(device times, CUDA graph replay); per eager call: kernel "
-            "{kernel_call_ms:.5f} plain {plain_call_ms:.5f}".format(**row))
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, d), generator=gen, device=dev)
+        rows.append(taom_times(name, x, w, main_cfg, bm, bd))
+    lm_rows = []
+    for name, m, k, d in TAOM_LM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        w = torch.randn((k, d), generator=gen, device=dev).bfloat16()
+        lm_rows.append(taom_times(name, x, w, main_cfg, 128, 128,
+                                  unaligned=True))
+    per_forward = {key: sum(r[key] for r in rows) for key in (
+        "fused_ms", "f32_route_ms", "f32_body_ms", "plain_ms", "matmul_ms",
+        "bound_ms", "bytes_ms", "ops_ms", "fused_call_ms",
+        "f32_route_call_ms")}
+    per_forward["split_ms"] = {part: sum(r["split_ms"][part] for r in rows)
+                               for part in taom_gemm.KERNELS}
+    log("[kernel] per batch-32 resnet_mini forward (13 GEMMs): " +
+        json.dumps(per_forward, sort_keys=True))
 
     # -- 3. serving: the main path --------------------------------------------
     img_gen = torch.Generator(device=dev)
@@ -883,15 +1041,20 @@ def main() -> int:
         engine.infer(x32)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / REQUESTS * 1e3
-    split = profile(lambda: engine.infer(x32), REQUESTS, "taom_gemm")
+    split = profile(lambda: engine.infer(x32), REQUESTS, "taom_gemm",
+                    split=taom_gemm.KERNELS)
     log(f"[serving] bucket-32 request, {REQUESTS} runs: {wall_ms:.4f} ms "
         f"host clock unprofiled; per request under the profiler: " +
         json.dumps(split, sort_keys=True))
-    log(f"[serving] TAOM kernel per bucket-32 forward: "
-        f"{split['kernel_ms_per_run']:.5f} ms on the path "
-        f"(profiler, {split['kernel_launches_per_run']:g} launches) vs "
-        f"{sum(r['kernel_ms'] for r in rows):.5f} ms in phase 2 (CUDA "
-        f"graph replay at the same shapes and tiles)")
+    assert split["kernel_launches_per_run"] == 2 * n_gemms, split
+    log(f"[serving] {split['device_kernels_per_run']:g} device kernels per "
+        f"bucket-32 request; the TAOM route's "
+        f"{split['kernel_launches_per_run']:g} (2 per GEMM) take "
+        f"{split['kernel_ms_per_run']:.5f} ms on the path (profiler; "
+        f"absmax {split['split_ms_per_run']['taom_gemm_absmax']:.5f}, "
+        f"int8 GEMM {split['split_ms_per_run']['taom_gemm_int8']:.5f}) vs "
+        f"{per_forward['fused_ms']:.5f} ms in phase 2 (CUDA graph replay "
+        f"at the same shapes and tiles)")
 
     # -- 4. SSD kernel vs plain version on the card ---------------------------
     ssd = ssd_phase(dev)
@@ -913,24 +1076,39 @@ def main() -> int:
         "replaces": "src/repro/kernels/taom_gemm.py:120",
         "launches": launches,
         "max_abs_err": max_err,
-        # Per resnet_mini forward at batch 32: the sum over its 13 GEMMs at
-        # the plan's tiles, device time (CUDA graph replay); call_ms adds
-        # the host's cost of issuing each eager call; path_ms is the
-        # profiler's time of the same 13 launches inside served requests.
-        "ms": sum(r["kernel_ms"] for r in rows),
-        "call_ms": sum(r["kernel_call_ms"] for r in rows),
+        # Per resnet_mini forward at batch 32: the sum over its 13 GEMMs
+        # at the plan's tiles of the fused int8 route (two kernels a GEMM;
+        # split_ms by kernel from the profiler), device time (CUDA graph
+        # replay); call_ms adds the host's cost of issuing each eager call;
+        # path_ms is the profiler's time of the same 26 kernels inside
+        # served requests.  f32_route_ms is the float32 body with PyTorch's
+        # quantize and rescale around it (the route before this design,
+        # and still 8-bit operands'); f32_body_ms that kernel alone.
+        "ms": per_forward["fused_ms"],
+        "split_ms": per_forward["split_ms"],
+        "call_ms": per_forward["fused_call_ms"],
         "path_ms": split["kernel_ms_per_run"],
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": ("bytes" if sum(r["bytes_ms"] for r in rows) >=
-                     sum(r["ops_ms"] for r in rows) else "operations"),
+        "path_split_ms": split["split_ms_per_run"],
+        "plain_ms": per_forward["plain_ms"],
+        "bound_ms": per_forward["bound_ms"],
+        "bound_by": ("bytes" if per_forward["bytes_ms"] >=
+                     per_forward["ops_ms"] else "operations"),
+        "f32_route_ms": per_forward["f32_route_ms"],
+        "f32_body_ms": per_forward["f32_body_ms"],
         # No single PyTorch call computes this function (quantized GEMM
         # with per-chunk noise and ADC rounding).
         "library_ms": None,
-        "matmul_ms": sum(r["matmul_ms"] for r in rows),
-        "matmul_note": "torch.matmul of the same f32 operands: the nearest "
+        "matmul_ms": per_forward["matmul_ms"],
+        "matmul_note": "torch.matmul of the same operands: the nearest "
                        "single PyTorch call, not the same function",
         "per": "one resnet_mini forward at batch 32 (13 GEMMs)",
+        # The photonic mamba2-130m GEMMs, per call (bf16, M 4000).
+        "lm": {r["gemm"]: {key: r[key] for key in (
+            "m", "k", "d", "fused_ms", "split_ms", "fused_sync_ms",
+            "f32_route_ms",
+            "f32_body_ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in lm_rows},
+        "lm_prefill_ms": lm["photonic"]["kernel_ms_per_run"],
     }
     bh, l, p, s, q, _ = SSD_SHAPES[0]
     ssd_entry = {

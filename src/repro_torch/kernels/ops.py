@@ -6,9 +6,13 @@
 backward.
 
 This is what the model zoo calls.  It folds leading dimensions into the
-GEMM's M axis, quantizes both operands, runs the chunked TAOM GEMM —
-the Hopper kernel (``kernels/taom_gemm.py``) for CUDA tensors, the plain
-version (``kernels/ref.py``) for CPU tensors or when asked — and rescales.
+GEMM's M axis, quantizes both operands, runs the chunked TAOM GEMM and
+rescales.  On CUDA tensors (``impl="kernel"``) operands of at most 7 bits
+take the fused int8 route, which does all three in its two kernels
+(``kernels/taom_gemm.taom_gemm_fused``); 8-bit operands are quantized and
+rescaled here around the float32 body (``taom_gemm_quantized``).  CPU
+tensors, or ``impl="ref"``, take the plain version
+(``kernels/ref.photonic_gemm_reference``).
 The backward is the straight-through estimator of the reference's
 ``custom_vjp``: gradients of an exact matmul, ``g @ w.T`` and ``x.T @ g``.
 
@@ -46,19 +50,30 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.index or 0) == (b.index or 0)
 
 
+_INT8_INPUTS = (torch.float32, torch.bfloat16)
+
+
 def _taom_forward(x2d: torch.Tensor, w: torch.Tensor,
                   noise: Optional[torch.Tensor],
                   cfg: PhotonicConfig, adc_fs: float, impl: str,
                   blocks: tuple) -> torch.Tensor:
+    if impl == "ref":
+        return ref_mod.photonic_gemm_reference(x2d, w, noise, cfg, adc_fs)
+    if taom_kernel_mod.int8_route(cfg):
+        # The fused int8 route takes float32 or bfloat16 operands; any
+        # other type is widened as the reference's quantize widens it.
+        xk = x2d if x2d.dtype in _INT8_INPUTS else x2d.to(torch.float32)
+        wk = w if w.dtype in _INT8_INPUTS else w.to(torch.float32)
+        out = taom_kernel_mod.taom_gemm_fused(
+            xk.contiguous(), wk.contiguous(), noise, cfg, adc_fs,
+            block_m=blocks[0], block_d=blocks[1])
+        return out.to(x2d.dtype)
     f32 = torch.float32
     xq, sx = quantize(x2d.to(f32), cfg.bits, axis=None)
     wq, sw = quantize(w.to(f32), cfg.bits, axis=0)
-    if impl == "kernel":
-        acc = taom_kernel_mod.taom_gemm_quantized(
-            xq.contiguous(), wq.contiguous(), noise, cfg, adc_fs,
-            block_m=blocks[0], block_d=blocks[1])
-    else:
-        acc = ref_mod.taom_gemm_reference(xq, wq, noise, cfg, adc_fs)
+    acc = taom_kernel_mod.taom_gemm_quantized(
+        xq.contiguous(), wq.contiguous(), noise, cfg, adc_fs,
+        block_m=blocks[0], block_d=blocks[1])
     return (acc * (sx * sw)).to(x2d.dtype)
 
 

@@ -9,6 +9,13 @@ kernel's ADC constants (``adc_round``).  The CPU tests run it against the
 reference package; ``chip_smoke.py`` holds the CUDA kernel against it on
 the card.
 
+``photonic_gemm_reference`` is the plain version of the fused int8 route
+``kernels.taom_gemm.taom_gemm_fused`` and the ``impl="ref"`` path of
+``ops.photonic_matmul`` (counterpart of the reference's
+``repro.kernels.ops._taom_forward`` with ``impl="ref"``): quantize x per
+tensor and w per column, ``taom_gemm_reference``, rescale, cast to x's
+dtype.
+
 ``ssd_scan_reference`` is the naive per-token Mamba2 recurrence
 (counterpart of ``repro.kernels.ref.ssd_scan_reference``): the oracle the
 chunked plain version ``ops._ssd_chunked`` and the SSD kernel are checked
@@ -27,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS, detection_sigma
+from repro_torch.core.taom import quantize
 from repro_torch.core.types import PhotonicConfig
 from repro_torch.kernels.taom_gemm import adc_round, chunk_fs
 
@@ -69,6 +77,19 @@ def taom_gemm_reference(xq: torch.Tensor, wq: torch.Tensor,
             raise ValueError(f"noise {tuple(noise.shape)} != {(m, d)}")
         acc = acc + sigma * math.sqrt(float(n_chunks)) * noise
     return adc_round(acc, cfg.adc_bits, float(adc_fs))
+
+
+def photonic_gemm_reference(x2d: torch.Tensor, w: torch.Tensor,
+                            noise: Optional[torch.Tensor],
+                            cfg: PhotonicConfig,
+                            adc_fs: float) -> torch.Tensor:
+    """Plain version of kernels.taom_gemm.taom_gemm_fused: quantize ->
+    taom_gemm_reference -> rescale, (M, D) in x2d's dtype."""
+    f32 = torch.float32
+    xq, sx = quantize(x2d.to(f32), cfg.bits, axis=None)
+    wq, sw = quantize(w.to(f32), cfg.bits, axis=0)
+    acc = taom_gemm_reference(xq, wq, noise, cfg, adc_fs)
+    return (acc * (sx * sw)).to(x2d.dtype)
 
 
 def ssd_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

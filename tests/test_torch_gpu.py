@@ -4,8 +4,9 @@ elsewhere).  Run them on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 They hold the CUDA kernels against their plain PyTorch versions on the
-card — the TAOM GEMM bit for bit where the integer psums stay below 2^24
-(asserted), the SSD scan within rtol 1e-4 and atol 1e-4 * max|plain| (its
+card — the TAOM GEMM's two routes (the float32 body on pre-quantized
+operands, and the fused int8 route with quantize and rescale inside) bit
+for bit where the integer psums stay below 2^24 (asserted), the SSD scan within rtol 1e-4 and atol 1e-4 * max|plain| (its
 sums run in another order), the flash-attention kernel within rtol 1e-5
 and atol 1e-5 * max|plain| in float32 and one bf16 ulp of max|plain|'s
 binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
@@ -81,6 +82,214 @@ def test_kernel_wrapper_rejects_bad_inputs_on_card(cuda):
         taom_gemm.taom_gemm_quantized(x, torch.zeros(4, 16, device=cuda).T,
                                       torch.zeros(8, 4, device=cuda), cfg,
                                       1.0)
+
+
+# The fused int8 route (bits <= 7): taom_gemm_fused against the plain
+# version ref.photonic_gemm_reference (quantize, chunked GEMM, rescale),
+# bit for bit.  resnet_mini's served GEMMs at batch 32 (N=83) and the
+# photonic mamba2-130m GEMMs (in_proj, out_proj) with M cut to 512.
+def _resnet_mini_shapes():
+    model = ZOO["resnet_mini"]
+    params = model.init_params(torch.Generator().manual_seed(0))
+    acc = pm.AcceleratorConfig.equal_area("heana", Dataflow.OS, 1.0)
+    plan = plan_for_network(params, acc, batch=32, in_hw=model.in_hw,
+                            lowering=model.graph, cache=PlanCache())
+    return sorted({(lp.c, lp.k, lp.d, lp.tile.block_d) for lp in plan.layers})
+
+
+FUSED_LM_SHAPES = [(512, 768, 3352, 128), (512, 1536, 768, 128)]
+
+
+def _fused_operands(cuda, m, k, d, dtype, seed, offset=(0, 0)):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(k, d, generator=gen, device=cuda) *
+         torch.rand(1, d, generator=gen, device=cuda)).to(dtype)
+    if offset[0]:
+        buf = torch.empty(x.numel() + offset[0], dtype=dtype, device=cuda)
+        x = buf[offset[0]:].view(m, k).copy_(x)
+    if offset[1]:
+        buf = torch.empty(w.numel() + offset[1], dtype=dtype, device=cuda)
+        w = buf[offset[1]:].view(k, d).copy_(w)
+    return x, w
+
+
+def _fused_noise(cuda, cfg, m, k, d, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    c = -(-k // cfg.dpe_size)
+    chunk_adc = cfg.backend in (Backend.AMW, Backend.MAW)
+    return torch.randn((c, m, d) if chunk_adc else (m, d), generator=gen,
+                       device=cuda)
+
+
+def _fused_equal(cuda, x, w, cfg, noise, block_d=128):
+    fs = taom_gemm.calibrated_adc_fs(x.shape[1], cfg)
+    assert cfg.qmax ** 2 * min(cfg.dpe_size, x.shape[1]) < 2 ** 24
+    before = taom_gemm.LAUNCHES
+    got = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs, block_d=block_d)
+    assert taom_gemm.LAUNCHES == before + 1
+    want = ref.photonic_gemm_reference(x, w, noise, cfg, fs)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW,
+                                     Backend.MAW, Backend.HEANA_AMW_BPCA])
+@pytest.mark.parametrize("noisy", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_route_bit_equal_at_resnet_mini_shapes_on_card(
+        cuda, backend, noisy, dtype):
+    cfg = PhotonicConfig(backend=backend, bits=6, dpe_size=83)
+    for i, (m, k, d, block_d) in enumerate(_resnet_mini_shapes()):
+        x, w = _fused_operands(cuda, m, k, d, dtype, seed=i)
+        noise = _fused_noise(cuda, cfg, m, k, d, i) if noisy else None
+        _fused_equal(cuda, x, w, cfg, noise, block_d)
+
+
+@pytest.mark.parametrize("m,k,d,block_d", FUSED_LM_SHAPES)
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW])
+@pytest.mark.parametrize("noisy", [True, False])
+def test_fused_route_bit_equal_at_photonic_lm_shapes_on_card(
+        cuda, m, k, d, block_d, backend, noisy):
+    cfg = PhotonicConfig(backend=backend, bits=6, dpe_size=83)
+    x, w = _fused_operands(cuda, m, k, d, torch.bfloat16, seed=k)
+    noise = _fused_noise(cuda, cfg, m, k, d, k) if noisy else None
+    _fused_equal(cuda, x, w, cfg, noise, block_d)
+
+
+@pytest.mark.parametrize("m,k,d,n,block_d", [
+    (1, 1, 1, 83, 128), (1, 144, 70, 83, 128),     # one row, D > 64
+    (37, 83, 70, 83, 8),                           # 9 column tiles of 8
+    (300, 200, 10, 36, 16), (64, 500, 33, 250, 64),  # a chunk in 2 pieces
+    (33, 27, 16, 7, 128), (5000, 84, 8, 83, 8)])
+@pytest.mark.parametrize("bits", [4, 5, 7])
+def test_fused_route_bit_equal_at_edges_on_card(cuda, m, k, d, n, block_d,
+                                                bits):
+    for backend in (Backend.HEANA, Backend.MAW):
+        cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=n)
+        x, w = _fused_operands(cuda, m, k, d, torch.float32, seed=m + bits)
+        _fused_equal(cuda, x, w, cfg, _fused_noise(cuda, cfg, m, k, d, 1),
+                     block_d)
+
+
+@pytest.mark.parametrize("bits", [4, 6, 7])
+@pytest.mark.parametrize("factor", [1.0, 0.7, 3.3, 1e-30, 1e30])
+def test_fused_route_rounds_half_integers_like_the_reference_on_card(
+        cuda, bits, factor):
+    # Operands at (near) half-integer multiples of their scale: the
+    # kernels' fast reciprocal path must hand these to the IEEE division,
+    # so that round-half-even sees the reference's quotient.
+    qmax = (1 << bits) - 1
+    halves = torch.arange(-2 * qmax, 2 * qmax + 1, device=cuda) * 0.5
+    x = (halves * factor).repeat(3, 1).float()
+    x[1] = torch.nextafter(x[1], torch.full_like(x[1], math.inf))
+    x[2] = torch.nextafter(x[2], torch.full_like(x[2], -math.inf))
+    w = (halves[:, None] * torch.tensor([factor, 1.0, 0.3, 7.0],
+                                        device=cuda)).float()
+    for backend in (Backend.HEANA, Backend.AMW):
+        cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=83)
+        _fused_equal(cuda, x, w, cfg, None)
+        _fused_equal(cuda, x.bfloat16(), w, cfg, None)
+
+
+@pytest.mark.parametrize("offset", [(1, 0), (2, 3), (0, 3), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_route_takes_views_off_a_16_byte_boundary_on_card(
+        cuda, offset, dtype):
+    # Contiguous x and w views that start inside a 16-byte vector are read
+    # one element at a time: the result is what aligned copies give.
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83)
+    m, k, d = 300, 144, 64
+    x, w = _fused_operands(cuda, m, k, d, dtype, seed=7, offset=offset)
+    assert x.is_contiguous() and w.is_contiguous()
+    assert bool(offset[0]) == bool(x.data_ptr() % 16)
+    _fused_equal(cuda, x, w, cfg, _fused_noise(cuda, cfg, m, k, d, 2))
+    fs = taom_gemm.calibrated_adc_fs(k, cfg)
+    aligned = taom_gemm.taom_gemm_fused(x.clone(), w.clone(), None, cfg, fs)
+    assert torch.equal(aligned,
+                       taom_gemm.taom_gemm_fused(x, w, None, cfg, fs))
+
+
+def test_photonic_matmul_takes_the_fused_route_on_card(cuda):
+    # bits <= 7 launch the fused route (its two kernels and no PyTorch
+    # quantize), 8 bits the float32 body; both equal impl="ref" with the
+    # same generator seed.
+    x = torch.randn(4, 50, 100, device=cuda)
+    w = torch.randn(100, 24, device=cuda)
+    for bits, route in ((6, "taom_gemm_int8"), (8, "taom_gemm_kernel")):
+        cfg = PhotonicConfig(backend=Backend.AMW, bits=bits, dpe_size=36)
+        got = ops.photonic_matmul(
+            x, w, cfg, generator=torch.Generator(device=cuda).manual_seed(3),
+            impl="kernel")
+        want = ops.photonic_matmul(
+            x, w, cfg, generator=torch.Generator(device=cuda).manual_seed(3),
+            impl="ref")
+        assert torch.equal(got, want), bits
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ops.photonic_matmul(x, w, dataclasses.replace(
+                cfg, noise_enabled=False), impl="kernel")
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()]
+        assert any(route in n for n in names), (bits, names)
+
+
+def test_fused_route_replays_in_a_cuda_graph_on_card(cuda):
+    # The two kernels and their scratch inside one captured call: replayed
+    # on fresh inputs, the graph gives what an eager call gives.
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83)
+    m, k, d = 2048, 144, 16
+    x, w = _fused_operands(cuda, m, k, d, torch.float32, seed=0)
+    noise = _fused_noise(cuda, cfg, m, k, d, 0)
+    fs = taom_gemm.calibrated_adc_fs(k, cfg)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs)
+    for seed in (1, 2):
+        nx, nw = _fused_operands(cuda, m, k, d, torch.float32, seed=seed)
+        x.copy_(nx * seed)
+        w.copy_(nw)
+        noise.copy_(_fused_noise(cuda, cfg, m, k, d, seed))
+        graph.replay()
+        want = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), seed
+        assert torch.equal(want,
+                           ref.photonic_gemm_reference(x, w, noise, cfg, fs))
+
+
+def test_fused_route_rejects_bad_inputs_on_card(cuda):
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83)
+    x = torch.zeros(8, 16, device=cuda)
+    w = torch.zeros(16, 4, device=cuda)
+    with pytest.raises(ValueError, match="bits <= 7"):
+        taom_gemm.taom_gemm_fused(x, w, None,
+                                  dataclasses.replace(cfg, bits=8), 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        taom_gemm.taom_gemm_fused(x.double(), w, None, cfg, 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        taom_gemm.taom_gemm_fused(x, w.half(), None, cfg, 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        taom_gemm.taom_gemm_fused(x, w, torch.zeros(8, 4, device=cuda,
+                                                    dtype=torch.bfloat16),
+                                  cfg, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        taom_gemm.taom_gemm_fused(x, torch.zeros(4, 16, device=cuda).T, None,
+                                  cfg, 1.0)
+    with pytest.raises(ValueError, match="noise has shape"):
+        taom_gemm.taom_gemm_fused(x, w, torch.zeros(4, 8, device=cuda), cfg,
+                                  1.0)
+    with pytest.raises(ValueError, match="bad GEMM shapes"):
+        taom_gemm.taom_gemm_fused(x, torch.zeros(15, 4, device=cuda), None,
+                                  cfg, 1.0)
+    with pytest.raises(ValueError, match="is on cpu"):
+        taom_gemm.taom_gemm_fused(x, w.cpu(), None, cfg, 1.0)
 
 
 @pytest.mark.parametrize("name", list(ZOO))
