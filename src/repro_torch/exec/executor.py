@@ -10,10 +10,11 @@ TAOM GEMM (the Hopper kernel on the card, the plain version on the CPU)
 Batching follows the paper's Toeplitz accounting: the image batch folds
 into the GEMM M axis, which is both the batch-serving shape and what
 core.perf_model charges for batched layers.  Detection noise is drawn per
-layer from a ``torch.Generator`` seeded with ``fold_seed(seed, layer)``, so
-every layer draws independent noise and a run is reproducible from one
-root seed (the reference folds a PRNG key per layer instead; the streams
-differ, the distribution does not).
+layer from a ``torch.Generator`` seeded with ``fold_seed(seed, layer)``
+(``draw_noise``), before the forward runs, so every layer draws
+independent noise and a run is reproducible from one root seed (the
+reference folds a PRNG key per layer instead; the streams differ, the
+distribution does not).
 
 The executor consumes a CnnPlan from exec.scheduler: each layer's GEMM uses
 the plan's tile (block_m, block_d).  The plan's *dataflow* choice changes
@@ -21,25 +22,43 @@ scheduling (latency/energy in the report), never numerics — with noise
 disabled the executed network equals the plain-version network
 (``reference_forward``) bit for bit, whatever the plan says.
 
-PyTorch runs eagerly, so there is no compiled forward to memoize: every
-call walks the graph and launches one kernel per GEMM node.  Per-layer
-numerics fingerprints (mean |activation|) stay on the device as one
-stacked tensor; ``ExecutionResult.traces`` copies them to the host only
-when a caller asks.
+Hot path — the reference compiles its forward with ``jax.jit``; the port
+captures it in a CUDA graph:
+
+  * ``forward_fn`` is the pure forward of (params, x, noise) with the
+    lowering, plan, cfg and impl bound by keyword; it makes no host sync,
+    so it captures as it is;
+  * ``compiled_forward`` memoizes a ``CompiledForward`` wrapper under the
+    reference's key (lowering fingerprint, plan cache keys, cfg, impl,
+    collect).  On the card its first call for an input shape and
+    parameter set captures the forward into a CUDA graph
+    (``trace_count`` counts captures), and later calls replay it; the
+    graph replays the same kernels the eager body launches, and gives the
+    same bits.  On the CPU it runs the eager body and captures nothing;
+  * per-layer numerics fingerprints (mean |activation|) stay on the device
+    as one stacked tensor; ``ExecutionResult.traces`` copies them to the
+    host only when a caller asks;
+  * ``execute_cnn`` keeps the ExecutionResult API (``compiled=False``
+    runs the eager body op by op, the baseline the reference keeps for
+    its throughput benchmark).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import threading
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core import cuda_graph
 from repro_torch.core import dataflow as df
 from repro_torch.core import hw
-from repro_torch.core.photonic_gemm import fold_seed, generator_for
+from repro_torch.core.photonic_gemm import (fold_seed, generator_for,
+                                            sample_noise)
 from repro_torch.core.types import PhotonicConfig, resolve_device
+from repro_torch.exec import plan_cache as pc
 from repro_torch.exec.scheduler import CnnPlan, LayerPlan
 from repro_torch.kernels import ops
 from repro_torch.models import cnn as cnn_mod
@@ -48,10 +67,7 @@ from repro_torch.models import lowering as lw
 #: A runnable network description: op-graph IR or legacy flat tuple.
 Lowering = Union[lw.OpGraph, Sequence[cnn_mod.LoweredLayer]]
 
-# The geometry memo is bounded like the reference's (each entry pins its
-# plan and lowering).
-_GEOMETRY_CACHE_MAX = 256
-_GEOMETRY_LOCK = threading.Lock()
+_LOWERING_FP_VERSION = 2
 
 
 @dataclasses.dataclass
@@ -148,31 +164,76 @@ def _norm_lowering(lowering):
 
 
 def _layer_matmul(cols: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
-                  generator: Optional[torch.Generator], plan: LayerPlan,
+                  noise: Optional[torch.Tensor], plan: LayerPlan,
                   impl: str) -> torch.Tensor:
-    return ops.photonic_matmul(cols, w, cfg, generator=generator, impl=impl,
+    return ops.photonic_matmul(cols, w, cfg, noise=noise, impl=impl,
                                block_m=plan.tile.block_m,
                                block_d=plan.tile.block_d)
 
 
-def _forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
-             seed: Optional[int] = None, *, lowering, plan: CnnPlan,
-             cfg: PhotonicConfig, impl: str, collect_activations: bool):
-    """Forward: (params, x, seed) -> (logits, fingerprints, acts).
+def _check_seed(cfg: PhotonicConfig, seed: Optional[int]) -> None:
+    if cfg.noise_enabled and seed is None:
+        raise ValueError(
+            "cfg.noise_enabled=True but seed=None — pass a root seed "
+            "(per-layer seeds are folded in) or set noise_enabled=False")
+
+
+def draw_noise(seed: Optional[int], plan: CnnPlan, cfg: PhotonicConfig,
+               device) -> Optional[List[torch.Tensor]]:
+    """Every GEMM layer's detection noise for one forward, or None with
+    noise off: layer i draws ``sample_noise`` at its executed (M, K, D)
+    (``LayerGemm.executed``) from a generator on ``device`` seeded with
+    ``fold_seed(seed, i)`` — the draw ``photonic_matmul`` would make from
+    that generator itself."""
+    if not cfg.noise_enabled:
+        return None
+    _check_seed(cfg, seed)
+    draws = []
+    for i, p in enumerate(plan.layers):
+        m, k, d = lw.LayerGemm(p.name, p.c, p.k, p.d, p.count).executed
+        gen = generator_for(fold_seed(seed, i), device)
+        draws.append(sample_noise(gen, (m, k), (k, d), cfg))
+    return draws
+
+
+# ---------------------------------------------------------------------------
+# Pure forward (the body a CUDA graph captures)
+# ---------------------------------------------------------------------------
+# Counts captures of the forward into a CUDA graph, the counterpart of the
+# reference's jit traces: a warm compiled call replays and leaves it
+# untouched.  Guarded by a lock: concurrent serving threads may capture at
+# once (cold buckets), and ``count += 1`` is not atomic.
+_TRACE_COUNT = 0
+_TRACE_LOCK = threading.Lock()
+
+
+def trace_count() -> int:
+    """How many times a forward has been captured into a CUDA graph."""
+    with _TRACE_LOCK:
+        return _TRACE_COUNT
+
+
+def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               noise: Optional[Sequence[torch.Tensor]] = None, *, lowering,
+               plan: CnnPlan, cfg: PhotonicConfig, impl: str,
+               collect_activations: bool):
+    """Forward: (params, x, noise) -> (logits, fingerprints, acts).
 
     Walks the lowering's op graph (models.lowering.graph_forward): every
     GEMM-bearing node runs through the photonic matmul with its
-    LayerPlan's tile and its own noise generator; glue nodes are plain
-    torch ops.  Fingerprints are per GEMM node, taken right after its
-    activation, and stay on the device.
+    LayerPlan's tile and its layer's pre-drawn noise (``draw_noise``;
+    None with noise off); glue nodes are plain torch ops.  Fingerprints
+    are per GEMM node, taken right after its activation, and stay on the
+    device.  No host sync anywhere in the body, so it captures in a CUDA
+    graph as it is.
     """
     graph = cnn_mod.as_graph(lowering, plan=plan)
 
     def mm(a2d: torch.Tensor, w2d: torch.Tensor, gi: int,
            node: lw.OpNode) -> torch.Tensor:
-        gen = (generator_for(fold_seed(seed, gi), a2d.device)
-               if seed is not None and cfg.noise_enabled else None)
-        return _layer_matmul(a2d, w2d, cfg, gen, plan.layers[gi], impl)
+        return _layer_matmul(a2d, w2d, cfg,
+                             None if noise is None else noise[gi],
+                             plan.layers[gi], impl)
 
     vals = lw.graph_forward(params, x, graph, mm)
     gemm_outs = [vals[n.name] for n in graph.gemm_nodes]
@@ -181,6 +242,162 @@ def _forward(params: Dict[str, torch.Tensor], x: torch.Tensor,
                                 for v in gemm_outs])
     acts = tuple(gemm_outs) if collect_activations else ()
     return vals[graph.output.name], fingerprints, acts
+
+
+def lowering_fingerprint(lowering) -> str:
+    """Content address of a lowered network structure (not its weights),
+    as the reference computes it: op graphs hash every node field; legacy
+    flat tuples keep their historical layout."""
+    if isinstance(lowering, lw.OpGraph):
+        layers = [dataclasses.asdict(n) for n in lowering.nodes]
+        for d in layers:
+            d["inputs"] = list(d["inputs"])
+    else:
+        layers = [[l.name, l.kind, l.relu, l.pool_after, l.kk]
+                  for l in lowering]
+    return pc.fingerprint({"v": _LOWERING_FP_VERSION, "layers": layers})
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured forward: its graph, the static buffers it reads and
+    writes, and the lock that serializes copy-in, replay and clone-out."""
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    noise: Optional[List[torch.Tensor]]
+    outs: tuple
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+    done: Optional["torch.cuda.Event"] = None
+
+
+# Graphs kept per compiled wrapper (one per input shape and parameter set).
+_GRAPHS_MAX = 8
+
+
+class CompiledForward:
+    """``fn(params, x, seed=None) -> (logits, fingerprints, acts)`` for
+    one (lowering, plan, cfg, impl, collect_activations); built by
+    ``compiled_forward``.
+
+    On a CUDA device the first call for an input captures the forward
+    into a CUDA graph, keyed by x's shape, dtype and device and by the
+    parameters' ``data_ptr``s, shapes and dtypes: a static input buffer,
+    static per-layer noise buffers (noise on), the parameters read where
+    they lie.  ``core.cuda_graph.capture`` runs the forward eagerly on a
+    side stream first, so the kernels' build, library loads and lazy
+    module loading never happen inside the capture.  Later calls copy x
+    (and the layers' noise, drawn outside the graph by ``draw_noise``)
+    into the static buffers, replay, and return clones of the static
+    outputs.  Other parameter tensors,
+    or another input shape, capture anew (``trace_count``).  A capture or
+    replay that fails raises; nothing falls back to the eager body.
+
+    On the CPU it runs the eager body and captures nothing.
+    """
+
+    def __init__(self, lowering, plan: CnnPlan, cfg: PhotonicConfig,
+                 impl: str, collect_activations: bool) -> None:
+        self.plan = plan
+        self.cfg = cfg
+        self._body = functools.partial(
+            forward_fn, lowering=lowering, plan=plan, cfg=cfg, impl=impl,
+            collect_activations=collect_activations)
+        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __call__(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 seed: Optional[int] = None):
+        noise = draw_noise(seed, self.plan, self.cfg, x.device)
+        if x.device.type != "cuda":
+            return self._body(params, x, noise)
+        key = (tuple(x.shape), x.dtype, x.device,
+               tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
+                     for name, t in sorted(params.items())))
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._capture(params, x, noise)
+                self._graphs[key] = entry
+                while len(self._graphs) > _GRAPHS_MAX:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+        stream = torch.cuda.current_stream(x.device)
+        with entry.lock:
+            if entry.done is not None:       # the last caller's clone-out
+                stream.wait_event(entry.done)
+            entry.x.copy_(x)
+            for buf, draw in zip(entry.noise or (), noise or ()):
+                buf.copy_(draw)
+            entry.graph.replay()
+            logits, fingerprints, acts = (
+                entry.outs[0].clone(), entry.outs[1].clone(),
+                tuple(a.clone() for a in entry.outs[2]))
+            entry.done = torch.cuda.Event()
+            entry.done.record(stream)
+        return logits, fingerprints, acts
+
+    def _capture(self, params, x, noise) -> _Captured:
+        global _TRACE_COUNT
+        static_x = x.clone()
+        static_noise = (None if noise is None
+                        else [n.clone() for n in noise])
+        graph, outs = cuda_graph.capture(
+            lambda: self._body(params, static_x, static_noise), x.device)
+        with _TRACE_LOCK:
+            _TRACE_COUNT += 1
+        return _Captured(graph, static_x, static_noise, outs)
+
+
+# Compiled-wrapper memo: (lowering fp, per-layer plan cache keys, cfg,
+# impl, collect) -> CompiledForward, the reference's key.  LRU-bounded as
+# the reference's is (evicting a wrapper frees its graphs and their
+# pools).  All access goes through _FORWARD_LOCK: the serving front-end
+# calls compiled_forward from concurrent request threads.
+_FORWARD_CACHE: "OrderedDict[tuple, CompiledForward]" = OrderedDict()
+_FORWARD_CACHE_MAX = 256
+_FORWARD_LOCK = threading.RLock()
+
+
+def compiled_forward(plan: CnnPlan, cfg: PhotonicConfig,
+                     lowering: Optional[Lowering] = None,
+                     impl: str = "auto",
+                     collect_activations: bool = False) -> CompiledForward:
+    """The compiled serving entry: returns ``fn(params, x, seed=None)``
+    (a ``CompiledForward``: one CUDA graph per input shape and parameter
+    set on the card, the eager body on the CPU).
+
+    Two plans that solve the same planning problems (same
+    content-addressed cache keys) share one wrapper even if they are
+    distinct objects.  Thread-safe.
+    """
+    lowering = _norm_lowering(lowering)
+    memo_key = (lowering_fingerprint(lowering),
+                tuple(p.cache_key for p in plan.layers), cfg, impl,
+                collect_activations)
+    with _FORWARD_LOCK:
+        fn = _FORWARD_CACHE.get(memo_key)
+        if fn is None:
+            fn = CompiledForward(lowering, plan, cfg, impl,
+                                 collect_activations)
+            _FORWARD_CACHE[memo_key] = fn
+            while len(_FORWARD_CACHE) > _FORWARD_CACHE_MAX:
+                _FORWARD_CACHE.popitem(last=False)
+        else:
+            _FORWARD_CACHE.move_to_end(memo_key)
+        return fn
+
+
+def compile_cache_stats() -> dict:
+    with _FORWARD_LOCK:
+        return {"entries": len(_FORWARD_CACHE),
+                "max_entries": _FORWARD_CACHE_MAX}
+
+
+def clear_compile_cache() -> None:
+    with _FORWARD_LOCK:
+        _FORWARD_CACHE.clear()
+        _validate_geometry.cache_clear()
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +427,13 @@ def _validate(x: torch.Tensor, plan: CnnPlan, cfg: PhotonicConfig,
             f"mixed-size traffic use exec.serving.ServingEngine, which "
             f"pads each request up to a power-of-two batch bucket with "
             f"its own plan and slices the results back")
-    if cfg.noise_enabled and seed is None:
-        raise ValueError(
-            "cfg.noise_enabled=True but seed=None — pass a root seed "
-            "(per-layer seeds are folded in) or set noise_enabled=False")
+    _check_seed(cfg, seed)
     hw.check_kernel_plan_coherence(cfg, plan)
-    with _GEOMETRY_LOCK:
+    with _FORWARD_LOCK:
         _validate_geometry(lowering, plan, int(h), int(w))
 
 
-@functools.lru_cache(maxsize=_GEOMETRY_CACHE_MAX)
+@functools.lru_cache(maxsize=_FORWARD_CACHE_MAX)
 def _validate_geometry(lowering, plan: CnnPlan, h: int, w: int) -> None:
     """Structural checks, memoized on (lowering, plan, H, W): infers every
     node's shape for these spatial dims, then pins each GEMM node against
@@ -265,6 +479,7 @@ def execute_cnn(params: Dict[str, torch.Tensor], x: torch.Tensor,
                 impl: str = "auto",
                 lowering: Optional[Lowering] = None,
                 collect_activations: bool = False,
+                compiled: bool = True,
                 device=None) -> ExecutionResult:
     """Run a lowered CNN end-to-end through the photonic kernel.
 
@@ -274,6 +489,12 @@ def execute_cnn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     seed: root seed for detection noise (per-layer seeds are folded in);
       REQUIRED when cfg.noise_enabled.
     impl: 'auto' | 'kernel' | 'ref' (forwarded to ops.photonic_matmul).
+    compiled: route through ``compiled_forward`` (default): a CUDA graph
+      on the card, captured at the first call for this input shape and
+      these parameter tensors.  False runs the same body op by op, the
+      baseline.  Pass params that already lie on the device: params
+      copied there anew on each call are new tensors, and may be captured
+      anew.
     device: where to run — the CUDA card unless the caller names another
       device (``device="cpu"`` runs the plain versions); params and x are
       moved there.
@@ -282,9 +503,15 @@ def execute_cnn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     lowering = _norm_lowering(lowering)
     params, x = _on_device(params, x, device)
     _validate(x, plan, cfg, lowering, seed)
-    logits, fingerprints, acts = _forward(
-        params, x, seed, lowering=lowering, plan=plan, cfg=cfg, impl=impl,
-        collect_activations=collect_activations)
+    if compiled:
+        fn = compiled_forward(plan, cfg, lowering, impl,
+                              collect_activations)
+        logits, fingerprints, acts = fn(params, x, seed)
+    else:
+        logits, fingerprints, acts = forward_fn(
+            params, x, draw_noise(seed, plan, cfg, x.device),
+            lowering=lowering, plan=plan, cfg=cfg, impl=impl,
+            collect_activations=collect_activations)
     return ExecutionResult(
         logits=logits, plan=plan, fingerprints=fingerprints,
         activations=list(acts) if collect_activations else None)

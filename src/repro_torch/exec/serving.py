@@ -11,26 +11,40 @@
     exact-size batch would produce.  (Chunking is not: each chunk is its
     own batch with its own quantize scale.);
 
-  * **warmup()** — runs every bucket once with a dummy batch, so the
-    kernel build and the first-use costs of every bucket shape are paid
-    before the first request;
+  * **warmup()** — captures every bucket's forward in a CUDA graph with a
+    dummy batch (``executor.compiled_forward``, one wrapper per bucket
+    built up front), so no request pays a capture or a kernel build
+    (``stats()["retraces_since_warmup"]`` stays 0); on the CPU it runs
+    every bucket once;
+
+  * a thread-safe **micro-batcher** — coalesces single-image requests
+    from a queue into bucketed batches under a max-delay knob, resolving
+    each request's Future with its row of the batched logits;
 
   * **serving metrics** — p50/p99 request latency, sustained throughput,
-    padding-overhead fraction, plan-cache stats, and the photonic model's
-    energy accounting of the served stream (modeled joules per inference,
-    padding included, and sustained watts) from each bucket plan via
-    core.hw.trace_energy.
+    padding-overhead fraction, plan-cache and compile-cache stats, and
+    the photonic model's energy accounting of the served stream (modeled
+    joules per inference, padding included, and sustained watts) from
+    each bucket plan via core.hw.trace_energy.
+
+Requests for one bucket share its graph's static buffers, so they
+serialize on that graph's lock around copy-in, replay and clone-out
+(``executor.CompiledForward``); requests for different buckets do not
+wait for each other.
 
 Noise: a noise-enabled engine requires a root seed per ``infer`` call
-(per-chunk seeds are folded in, per-layer seeds inside the forward).
+(per-chunk seeds are folded in, per-layer seeds inside the forward; the
+noise is drawn outside the graph into its static buffers).
 
-Not ported yet: the reference's ``MicroBatcher`` and its data-parallel
-path over several devices.
+Not ported yet: the reference's data-parallel path over several devices
+(ROADMAP A9).
 """
 from __future__ import annotations
 
+import queue
 import threading
 import time
+from concurrent.futures import Future
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +57,8 @@ from repro_torch.exec import plan_cache as pc
 from repro_torch.exec.scheduler import CnnPlan, HardwareSpec, schedule_buckets
 from repro_torch.models import cnn as cnn_mod
 
-__all__ = ["ServingEngine", "power_of_two_buckets", "bucket_for"]
+__all__ = ["ServingEngine", "MicroBatcher", "power_of_two_buckets",
+           "bucket_for"]
 
 #: How many recent request latencies the metrics window keeps.
 _LATENCY_WINDOW = 16384
@@ -82,7 +97,7 @@ class ServingEngine:
 
     One engine serves one network (lowering + params) on one accelerator
     config.  Entry points are thread-safe: concurrent request threads
-    serialize only on metrics bookkeeping.
+    serialize on metrics bookkeeping and, per bucket, on its graph.
 
     Parameters
     ----------
@@ -140,6 +155,11 @@ class ServingEngine:
         # Every bucket shares one hardware spec, so checking one plan
         # pins cfg against all of them (the executor re-checks per batch).
         hw.check_kernel_plan_coherence(cfg, self.plans[self.buckets[0]])
+        # One compiled wrapper per bucket, built up front; the graphs are
+        # captured at warmup() or first call.
+        self._fns = {b: ex.compiled_forward(self.plans[b], cfg,
+                                            self._lowering, impl)
+                     for b in self.buckets}
 
         self._lock = threading.Lock()
         self._latencies: List[float] = []
@@ -151,6 +171,7 @@ class ServingEngine:
         self._executed_slots = 0
         self._busy_s = 0.0
         self._warm = False
+        self._retraces = 0
         # Modeled photonic energy of the executed stream, per bucket from
         # the plans; a padded bucket is charged in full.
         self._bucket_energy = {b: hw.trace_energy(self.plans[b])
@@ -169,10 +190,15 @@ class ServingEngine:
 
     def _run_bucket(self, xb: torch.Tensor, seed: Optional[int],
                     bucket: int) -> torch.Tensor:
-        logits, _, _ = ex._forward(
-            self._params, xb, seed, lowering=self._lowering,
-            plan=self.plans[bucket], cfg=self._cfg, impl=self._impl,
-            collect_activations=False)
+        traces0 = ex.trace_count() if self._warm else 0
+        logits, _, _ = self._fns[bucket](self._params, xb, seed)
+        if self._warm:
+            # Engine-local retrace accounting: only captures across THIS
+            # engine's calls count, not another engine's warmup.
+            traced = ex.trace_count() - traces0
+            if traced:
+                with self._lock:
+                    self._retraces += traced
         return logits
 
     def _infer_chunk(self, chunk: torch.Tensor,
@@ -195,8 +221,10 @@ class ServingEngine:
 
     # -- public entry points -------------------------------------------------
     def warmup(self, seed: Optional[int] = None) -> Dict[int, float]:
-        """Run every bucket once with a dummy batch (kernel build and
-        first-use costs paid up front).  Returns {bucket: cold_seconds}."""
+        """Capture every bucket's forward with a dummy batch (on the CPU:
+        run it once), so no request pays a capture or a kernel build.
+        Returns {bucket: cold_seconds}.  With noise enabled a dummy seed is
+        used; serving seeds replay the same graph."""
         if not self._cfg.noise_enabled:
             seed = None
         elif seed is None:
@@ -212,6 +240,7 @@ class ServingEngine:
             cold[b] = time.perf_counter() - t0
         with self._lock:
             self._warm = True
+            self._retraces = 0
         return cold
 
     def infer(self, x, seed: Optional[int] = None,
@@ -271,9 +300,11 @@ class ServingEngine:
         return self.infer(image[None], seed=seed)[0]
 
     def stats(self) -> dict:
-        """Serving metrics + the plan-cache stats."""
+        """Serving metrics + the cache and capture hooks."""
         with self._lock:
             lat = sorted(self._latencies)
+            warm = self._warm
+            retraces = self._retraces
             out = {
                 "requests": self._requests,
                 "images": self._images,
@@ -292,7 +323,7 @@ class ServingEngine:
                 "data_parallel": False,
                 "n_devices": 1,
                 "device": str(self.device),
-                "warmed_up": self._warm,
+                "warmed_up": warm,
                 # Photonic-model energy of the served stream (not the
                 # host's or the card's electricity): joules per real
                 # inference, padding included, and the accelerator's
@@ -303,5 +334,160 @@ class ServingEngine:
                 "modeled_sustained_w": (self._energy_j / self._model_time_s
                                         if self._model_time_s > 0 else 0.0),
             }
+        out["retraces_since_warmup"] = retraces if warm else None
         out["plan_cache"] = self.plan_cache.stats()
+        out["compile_cache"] = ex.compile_cache_stats()
         return out
+
+
+class MicroBatcher:
+    """Thread-safe request coalescer: single images in, bucketed batches
+    through a ServingEngine, per-request Futures out.
+
+    A background worker takes the first queued request, then keeps
+    gathering until either ``max_batch`` requests are in hand or
+    ``max_delay_s`` has elapsed since the first one — the classic
+    latency/throughput knob.  The stacked batch goes through
+    ``engine.infer`` (which pads it to a bucket), and each Future
+    resolves with its own row of the logits.
+
+    With a noise-enabled engine pass a root ``seed``: each formed batch
+    folds in a monotonic counter (``fold_seed``), so batches draw
+    independent noise and a given (seed, arrival order) replays exactly.
+    """
+
+    def __init__(self, engine: ServingEngine, max_delay_s: float = 0.002,
+                 max_batch: Optional[int] = None,
+                 seed: Optional[int] = None) -> None:
+        if max_delay_s < 0:
+            raise ValueError(f"max_delay_s must be >= 0, got {max_delay_s}")
+        self._engine = engine
+        self._max_delay_s = float(max_delay_s)
+        self._max_batch = int(max_batch or engine.max_bucket)
+        if self._max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if engine._cfg.noise_enabled and seed is None:
+            raise ValueError(
+                "engine has noise_enabled=True: MicroBatcher needs a root "
+                "seed (per-batch seeds are folded in)")
+        self._seed = seed
+        self._batch_counter = 0
+        self._queue: "queue.Queue[tuple]" = queue.Queue()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        self._batches_formed = 0
+        self._requests_batched = 0
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> "MicroBatcher":
+        if self._thread is not None:
+            raise RuntimeError("MicroBatcher already started")
+        self._thread = threading.Thread(target=self._run,
+                                        name="micro-batcher", daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: Optional[float] = 5.0) -> None:
+        """Stop the worker after draining already-queued requests.
+
+        A submit() that passed its stopped-check concurrently with this
+        call may enqueue after the worker exits; the drain below picks
+        such stragglers up so no accepted Future is left unresolved.
+        """
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            self._thread = None
+        self._drain_now()
+
+    def __enter__(self) -> "MicroBatcher":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- request path --------------------------------------------------------
+    def submit(self, image) -> "Future":
+        """Enqueue one (H, W, C) image; the Future resolves to its
+        (classes,) logits (or raises what the engine raised)."""
+        if self._stop.is_set():
+            raise RuntimeError("MicroBatcher is stopped")
+        image = torch.as_tensor(image)
+        if image.dim() != 3:
+            raise ValueError(f"image must be (H, W, C), got shape "
+                             f"{tuple(image.shape)}")
+        fut: Future = Future()
+        self._queue.put((image, fut))
+        return fut
+
+    def _next_seed(self) -> Optional[int]:
+        if self._seed is None:
+            return None
+        s = fold_seed(self._seed, self._batch_counter)
+        self._batch_counter += 1
+        return s
+
+    def _drain_now(self) -> None:
+        """Dispatch everything currently queued, in bucket-size groups
+        (queue.get is atomic, so a concurrent worker and a draining
+        stop() cannot double-dispatch a request)."""
+        while True:
+            group: list = []
+            while len(group) < self._max_batch:
+                try:
+                    group.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            if not group:
+                return
+            self._dispatch(group)
+
+    def _run(self) -> None:
+        while True:
+            try:
+                first = self._queue.get(timeout=0.02)
+            except queue.Empty:
+                if self._stop.is_set():
+                    self._drain_now()      # requests that raced the stop
+                    return
+                continue
+            batch = [first]
+            deadline = time.perf_counter() + self._max_delay_s
+            while len(batch) < self._max_batch:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    batch.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
+            self._dispatch(batch)
+
+    def _dispatch(self, batch: list) -> None:
+        try:
+            # stack is inside the guard: mixed image shapes in one
+            # coalescing window must fail THESE futures, not kill the
+            # worker thread (which would hang every later request).
+            images = torch.stack([b[0] for b in batch])
+            logits = self._engine.infer(images, seed=self._next_seed())
+        except Exception as exc:  # surface engine errors per request
+            for _, fut in batch:
+                fut.set_exception(exc)
+            return
+        for i, (_, fut) in enumerate(batch):
+            fut.set_result(logits[i])
+        with self._lock:
+            self._batches_formed += 1
+            self._requests_batched += len(batch)
+
+    def stats(self) -> dict:
+        with self._lock:
+            formed = self._batches_formed
+            n = self._requests_batched
+        return {"batches_formed": formed, "requests_batched": n,
+                "mean_fill": (n / formed) if formed else 0.0,
+                "max_delay_s": self._max_delay_s,
+                "max_batch": self._max_batch,
+                "queued": self._queue.qsize()}
+

@@ -35,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS, sample_noise
+from repro_torch.core.photonic_gemm import (CHUNK_ADC_BACKENDS, noise_shape,
+                                            sample_noise)
 from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, PhotonicConfig
 from repro_torch.kernels import flash_attention as flash_kernel_mod
@@ -97,7 +98,8 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
                     generator: Optional[torch.Generator] = None,
                     impl: str = "auto",
                     adc_fs: Optional[float] = None,
-                    block_m: int = 128, block_d: int = 128) -> torch.Tensor:
+                    block_m: int = 128, block_d: int = 128,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Photonic-numerics matmul: (..., K) @ (K, D) -> (..., D).
 
     impl: 'auto' (the kernel for CUDA tensors, the plain version for CPU
@@ -106,31 +108,45 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
     (mapped onto the kernel's own tile; numerics are tile-invariant).
 
     Noise contract: ``cfg.noise_enabled=True`` requires a ``generator``
-    (on x's device); without one this raises — disable noise explicitly
-    (``noise_enabled=False``) to run deterministically.  The EXACT backend
-    bypasses the photonic pipeline, so ``noise_enabled`` does not apply.
+    (on x's device) or pre-drawn ``noise``; without either this raises —
+    disable noise explicitly (``noise_enabled=False``) to run
+    deterministically.  ``noise`` is the standard-normal draw that
+    ``sample_noise(generator, (M, K), w.shape, cfg)`` would make, M the
+    product of x's leading dimensions: the executor draws every layer's
+    noise before its forward, so that a forward captured in a CUDA graph
+    reads it from static buffers.  The EXACT backend bypasses the
+    photonic pipeline, so ``noise_enabled`` does not apply.
     """
     if cfg.backend == Backend.EXACT:
         return x @ w
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if cfg.noise_enabled and generator is None:
+    if cfg.noise_enabled and generator is None and noise is None:
         raise ValueError(
             "photonic_matmul: cfg.noise_enabled=True but generator=None — "
-            "detection noise needs a torch.Generator on x's device; or set "
-            "noise_enabled=False to run deterministically")
+            "detection noise needs a torch.Generator on x's device (or "
+            "pre-drawn noise); or set noise_enabled=False to run "
+            "deterministically")
     if impl == "auto":
         impl = "kernel" if x.is_cuda else "ref"
     if adc_fs is None:
         adc_fs = taom_kernel_mod.calibrated_adc_fs(x.shape[-1], cfg)
     batch_shape = x.shape[:-1]
     x2d = x.reshape(-1, x.shape[-1])
-    noise = None                    # noise off: the GEMM skips the term
-    if cfg.noise_enabled:
+    if not cfg.noise_enabled:
+        noise = None                # noise off: the GEMM skips the term
+    elif noise is not None:
+        want = noise_shape(tuple(x2d.shape), tuple(w.shape), cfg)
+        if tuple(noise.shape) != want or noise.device != x.device:
+            raise ValueError(f"noise is {tuple(noise.shape)} on "
+                             f"{noise.device}, the GEMM needs {want} on "
+                             f"{x.device}")
+    else:
         if not _same_device(generator.device, x.device):
             raise ValueError(f"generator is on {generator.device} but x is "
                              f"on {x.device}")
         noise = sample_noise(generator, tuple(x2d.shape), tuple(w.shape), cfg)
+    if noise is not None:
         if cfg.backend in CHUNK_ADC_BACKENDS:
             noise = noise.movedim(-2, 0).contiguous()   # (M,C,D) -> (C,M,D)
     out = _TaomSTE.apply(x2d, w, noise, cfg, float(adc_fs), impl,

@@ -5,6 +5,16 @@ Builds a request batch of seeded random prompts, prefills, then decodes N
 tokens per request (greedy, or sampled at a temperature).  Runs on the
 CUDA card unless ``device`` names another device.
 
+On the card the decode step runs as one CUDA graph (``DecodeGraph``), the
+port's counterpart of the reference's ``jax.jit`` of the step: after the
+prefill the state is copied into static buffers, one step is captured
+over them (token in, position in, logits out) and replayed ``gen - 1``
+times; the token pick (argmax, or a multinomial draw with the sampler)
+stays outside the graph.  The capture happens before the decode clock
+starts and is timed on its own (``capture_s``); the reference's
+``decode_s`` includes its jit compile (ROADMAP D4).  A capture or replay
+that fails raises.  On the CPU the step runs eagerly.
+
 Which kernels the prefill drives: for the ssm family (mamba2) the SSD scan
 through ``ssm_impl``, for the dense family (qwen2, h2o-danube3, gemma3)
 each attention layer's self-attention over the prompt through
@@ -18,7 +28,7 @@ function as that cache-less branch, which the reference describes as the
 train/prefill hot path.  Decode takes no kernel: the SSD one-token
 recurrence and the grouped-einsum attention over the KV cache, as in the
 reference.  Each impl computes one function (the tests hold them
-together).
+together).  The graph replays the same kernels the eager step launches.
 
 ``tokens_per_s`` is the decode rate: the ``gen - 1`` tokens per request
 that decode steps make, over the decode time (the first token comes from
@@ -36,9 +46,11 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import cuda_graph
 from repro_torch.core.photonic_gemm import fold_seed
 from repro_torch.core.types import resolve_device
 from repro_torch.models import model_zoo as zoo
+from repro_torch.models.transformer import tree_map
 
 
 @dataclasses.dataclass
@@ -47,11 +59,49 @@ class ServeResult:
     prefill_s: float
     decode_s: float
     tokens_per_s: float           # decode steps' tokens / decode_s
+    capture_s: float = 0.0        # the decode step's capture (CUDA only)
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class DecodeGraph:
+    """One decode step of ``cfg`` captured in a CUDA graph over static
+    buffers: ``step(token, index)`` -> (B, 1, vocab) logits.
+
+    ``state`` (a prefill's or a decode step's) is copied into the graph's
+    static state, which each replay advances in place; ``token`` (B, 1)
+    gives the token buffer's shape and dtype.  ``core.cuda_graph.capture``
+    captures the step, after an eager warm step over a throwaway copy of
+    the state; the graph has its own memory pool, and the allocator's
+    cache stays warm for the eager work after it.  The logits returned
+    are the graph's static output: read them before the next call.
+    """
+
+    def __init__(self, params, cfg, state, token: torch.Tensor,
+                 attn_impl: str = "auto") -> None:
+        dev = token.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, the token "
+                             f"is on {dev}")
+        self.state = tree_map(torch.clone, state)
+        self.token = token.clone()
+        self.index = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph, (self.logits, _) = cuda_graph.capture(
+            lambda: zoo.decode_fn(params, self.token, self.index, cfg,
+                                  self.state, attn_impl=attn_impl),
+            dev,
+            warm=lambda: zoo.decode_fn(params, self.token, self.index, cfg,
+                                       tree_map(torch.clone, state),
+                                       attn_impl=attn_impl))
+
+    def __call__(self, token: torch.Tensor, index: int) -> torch.Tensor:
+        self.token.copy_(token)
+        self.index.fill_(int(index))
+        self.graph.replay()
+        return self.logits
 
 
 def serve(arch: str, smoke: bool = True, batch: int = 4,
@@ -92,17 +142,27 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
 
     tok = pick(logits)
     out = [tok]
+    step, t_capture = None, 0.0
+    if device.type == "cuda" and gen > 1:
+        t0 = time.perf_counter()
+        step = DecodeGraph(params, cfg, state, tok, attn_impl)
+        del state                   # the graph holds its own copy
+        _sync(device)
+        t_capture = time.perf_counter() - t0
     t1 = time.perf_counter()
     for i in range(gen - 1):
-        logits, state = zoo.decode_fn(params, tok, prompt_len + i, cfg,
-                                      state, attn_impl=attn_impl)
+        if step is not None:
+            logits = step(tok, prompt_len + i)
+        else:
+            logits, state = zoo.decode_fn(params, tok, prompt_len + i, cfg,
+                                          state, attn_impl=attn_impl)
         tok = pick(logits)
         out.append(tok)
     _sync(device)
     t_decode = time.perf_counter() - t1
     seq = torch.cat([prompts] + [t.cpu() for t in out], dim=1)
     return ServeResult(seq, t_prefill, t_decode,
-                       batch * (gen - 1) / max(t_decode, 1e-9))
+                       batch * (gen - 1) / max(t_decode, 1e-9), t_capture)
 
 
 def main() -> None:
@@ -121,8 +181,8 @@ def main() -> None:
               ssm_impl=args.ssm_impl, attn_impl=args.attn_impl,
               device=args.device)
     print(f"prefill {r.prefill_s*1e3:.1f} ms, decode {r.decode_s*1e3:.1f} ms"
-          f" ({r.tokens_per_s:.1f} tok/s), output shape "
-          f"{tuple(r.tokens.shape)}")
+          f" ({r.tokens_per_s:.1f} tok/s), decode-step capture "
+          f"{r.capture_s*1e3:.1f} ms, output shape {tuple(r.tokens.shape)}")
 
 
 if __name__ == "__main__":

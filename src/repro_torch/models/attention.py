@@ -13,7 +13,12 @@ KV caches are explicit dicts:
   {"k": (B, S, KVH, HD), "v": ..., "pos": (B, S) int32}
 Sliding-window layers allocate min(window, S) slots and write at
 ``index % slots`` (rolling); ``pos`` (-1 = empty) makes masking exact even
-mid-warmup.  Cache updates return new tensors, as the reference's do.
+mid-warmup.  The prefill returns new cache tensors, as the reference's
+does.  A decode step writes its slot in place (``index_copy_``, the slot
+computed on the device) and returns the cache it was given, so that a
+step captures in a CUDA graph over static caches and no step copies the
+whole cache (the reference returns new tensors).  Its index is a Python
+int or a 0-d integer tensor on the cache's device.
 
 ``attention(attn_impl=...)`` picks how self-attention over a whole prompt
 is computed: 'dense' is the reference's default XLA path
@@ -191,7 +196,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               spec: AttnSpec, ctx: L.PhotonicCtx = L.EXACT_CTX,
               name: str = "attn",
               cache: Optional[dict] = None,
-              cache_index: Optional[int] = None,
+              cache_index=None,
               kv_source: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
               attn_impl: str = "auto",
@@ -200,7 +205,8 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
     x: (B, S, D); positions: (B, S) absolute positions of x.
     cache + cache_index=None  -> prefill: fill the cache's slots.
-    cache + cache_index=i     -> decode: write at slot i % slots, S must be 1.
+    cache + cache_index=i     -> decode: write at slot i % slots in place,
+                                 S must be 1; i an int or a 0-d tensor.
     kv_source                 -> cross-attention (no cache, no rope).
     attn_impl                 -> 'auto' | 'kernel' | 'ref' | 'dense' (see
                                  the module docstring).
@@ -240,21 +246,25 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
             kk, vv, pp = ((t[:, -slots:] if s > slots else t)
                           for t in (k, v, positions))
             idx = pp[0].long() % slots
+            new_cache = {key: cache[key].clone() for key in ("k", "v", "pos")}
+            new_cache["k"][:, idx] = kk.to(cache["k"].dtype)
+            new_cache["v"][:, idx] = vv.to(cache["v"].dtype)
+            new_cache["pos"][:, idx] = pp.to(torch.int32)
+            # attend over the prompt's own K, V
+            mask = (positions, positions, spec.window, spec.causal)
         else:                                        # single-token decode
             if s != 1:
                 raise ValueError(f"decode takes one token, got S={s}")
-            kk, vv, pp = k, v, positions
-            slot = int(cache_index) % slots
-            idx = slice(slot, slot + 1)
-        new_cache = {key: cache[key].clone() for key in ("k", "v", "pos")}
-        new_cache["k"][:, idx] = kk.to(cache["k"].dtype)
-        new_cache["v"][:, idx] = vv.to(cache["v"].dtype)
-        new_cache["pos"][:, idx] = pp.to(torch.int32)
-        if cache_index is None:       # attend over the prompt's own K, V
-            mask = (positions, positions, spec.window, spec.causal)
-        else:
-            k, v = new_cache["k"], new_cache["v"]
-            mask = (positions, new_cache["pos"], spec.window, spec.causal)
+            if not isinstance(cache_index, torch.Tensor):
+                cache_index = torch.full((), int(cache_index),
+                                         dtype=torch.int64, device=x.device)
+            slot = cache_index.reshape(1).long() % slots
+            cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+            cache["pos"].index_copy_(1, slot, positions.to(torch.int32))
+            new_cache = cache
+            k, v = cache["k"], cache["v"]
+            mask = (positions, cache["pos"], spec.window, spec.causal)
     if attn_impl != "dense" and s > 1 and kv_source is None and \
             cache_index is None:
         out = _flash_self_attention(q, k, v, spec, attn_impl)

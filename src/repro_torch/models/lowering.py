@@ -520,8 +520,11 @@ def _apply_pool(node: OpNode, x: torch.Tensor) -> torch.Tensor:
     if node.pool == "max":
         return out
     # A 0-dim tensor on x's device keeps this a true division on the card
-    # (a Python scalar divisor becomes a reciprocal multiply there).
-    return out / out.new_tensor(float(s * s))
+    # (a Python scalar divisor becomes a reciprocal multiply there); made
+    # by a fill, not a copy from the host, so that it captures in a CUDA
+    # graph.
+    return out / torch.full((), float(s * s), dtype=out.dtype,
+                            device=out.device)
 
 
 def _apply_shuffle(node: OpNode, x: torch.Tensor) -> torch.Tensor:

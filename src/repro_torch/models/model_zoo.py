@@ -64,9 +64,13 @@ def prefill_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     return logits, {"layers": caches}
 
 
-def decode_fn(params, token: torch.Tensor, index: int, cfg: ArchConfig,
+def decode_fn(params, token: torch.Tensor, index, cfg: ArchConfig,
               state, ctx: L.PhotonicCtx = L.EXACT_CTX,
               attn_impl: str = "auto"):
+    """One decode step on the params' device.  index: the token's
+    position, a Python int or a 0-d integer tensor on that device.  The
+    caches in ``state`` are updated in place (``transformer.decode_step``);
+    a caller that needs the state from before the step keeps a copy."""
     transformer.check_supported(cfg)
     _check_device(params, token)
     logits, caches = transformer.decode_step(params, token, index, cfg,

@@ -9,7 +9,9 @@ float32, y is cast back to the model dtype before the gated norm, and the
 conv history is kept in float32.
 
 Decode state: {"conv": (B, W-1, C_xbc), "ssm": (B, H, P, S)} — O(1) per
-token.
+token.  A decode step writes the new state back into these buffers and
+returns the dict it was given (the reference returns new arrays), so that
+a step captures in a CUDA graph over static state.
 """
 from __future__ import annotations
 
@@ -158,7 +160,8 @@ def mamba_decode_step(params: dict, x: torch.Tensor, d_model: int,
                       s: SSMConfig, state: dict,
                       ctx: L.PhotonicCtx = L.EXACT_CTX,
                       name: str = "mamba") -> Tuple[torch.Tensor, dict]:
-    """Single-token decode.  x: (B, 1, D); state from init_state/prefill."""
+    """Single-token decode.  x: (B, 1, D); state from init_state/prefill,
+    updated in place and returned."""
     f32 = torch.float32
     bsz = x.shape[0]
     z, xbc, dt, d_inner, n_heads = _split(params, x, d_model, s, ctx, name)
@@ -193,5 +196,6 @@ def mamba_decode_step(params: dict, x: torch.Tensor, d_model: int,
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
     y = L.rms_norm(params["norm"], y * L.silu(z))
     out = L.dense(params["out_proj"], y, ctx, f"{name}.out_proj")
-    return out, {"conv": new_conv,
-                 "ssm": new_st.reshape(bsz, n_heads, p, s.state_dim)}
+    state["conv"].copy_(new_conv)
+    state["ssm"].copy_(new_st.reshape(bsz, n_heads, p, s.state_dim))
+    return out, state

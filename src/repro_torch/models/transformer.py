@@ -13,7 +13,10 @@ encoder-decoder) raise ``NotImplementedError`` naming their ROADMAP item.
 The reference's ``dist`` context is dropped: the port runs on one device.
 
 Serving: ``init_caches`` -> ``prefill`` -> ``decode_step`` with explicit
-cache trees throughout.  ``ssm_impl`` picks the SSD scan's impl and
+cache trees throughout.  The prefill returns new caches; a decode step
+updates the caches it is given in place and returns them, and takes its
+position as a Python int or a 0-d tensor on the device, so that a step
+captures in a CUDA graph (``launch/serve.DecodeGraph``).  ``ssm_impl`` picks the SSD scan's impl and
 ``attn_impl`` attention's (``models.attention.attention``): the flash
 kernel runs each attention layer's self-attention over the prompt.
 """
@@ -200,7 +203,9 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
     """Run one plan group superblock by superblock; returns (x,
     new_caches_or_None).  Call sites are named as in the reference's
     scanned body: after the group, and ``{group}.{i}`` for the i-th
-    sublayer of a local:global superblock."""
+    sublayer of a local:global superblock.  A decode step
+    (``cache_index`` set) writes each layer's slice of ``caches`` in
+    place and returns ``caches`` itself."""
     stacked = p["stack"]
     new_caches = []
     for r in range(g.repeats):
@@ -221,6 +226,8 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
                                   ctx, g.name, layer_c, cache_index,
                                   ssm_impl, attn_impl, return_state)
         new_caches.append(nc)
+    if cache_index is not None:
+        return x, caches
     if new_caches[-1] is None or not (caches is not None or return_state):
         return x, None
     return x, tree_map(lambda *a: torch.stack(a), *new_caches)
@@ -299,18 +306,23 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     return L.unembed(_head(params, cfg), x, ctx), new_caches
 
 
-def decode_step(params: dict, token: torch.Tensor, index: int,
+def decode_step(params: dict, token: torch.Tensor, index,
                 cfg: ArchConfig, caches: dict,
                 ctx: L.PhotonicCtx = L.EXACT_CTX,
                 attn_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
-    """One decode step.  token: (B, 1) integer; index: its position.
-    (One token: attention takes the grouped einsum whatever ``attn_impl``
-    says, as in the reference; the argument is checked and passed on.)"""
+    """One decode step.  token: (B, 1) integer; index: its position, a
+    Python int or a 0-d integer tensor on the token's device (what a CUDA
+    graph of the step reads).  ``caches`` are updated in place and
+    returned.  (One token: attention takes the grouped einsum whatever
+    ``attn_impl`` says, as in the reference; the argument is checked and
+    passed on.)"""
     check_supported(cfg)
     b = token.shape[0]
     x = L.embed(params["embed"], token)
-    positions = torch.full((b, 1), int(index), dtype=torch.int32,
+    if not isinstance(index, torch.Tensor):     # a fill, no host copy
+        index = torch.full((), int(index), dtype=torch.int64,
                            device=token.device)
+    positions = index.to(torch.int32).reshape(1, 1).expand(b, 1)
     new_caches = {}
     for g in layer_plan(cfg):
         x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,

@@ -13,7 +13,11 @@ binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
 version's over 128-key blocks; the bf16 kernel's P reaches the tensor
 cores as two bf16 terms, within 2^-17 of the float32 P) — and run the
 zoo networks, a mamba2 prefill and a qwen2 prefill end to end through the
-kernels.  They import no JAX.
+kernels — and hold the compiled paths: the CNN forward captured in a CUDA
+graph bit-equal to the eager forward for every resnet_mini bucket (both
+policies, noise off and on from one seed), no capture after warmup, eight
+threads served bitwise, and a graphed decode step equal to the eager one.
+They import no JAX.
 """
 import dataclasses
 import math
@@ -534,3 +538,163 @@ def test_qwen2_prefill_through_the_flash_kernel_on_card(cuda):
     for key in ("k", "v"):     # layer 1's come from layer 0's attention
         assert torch.allclose(body_k[key], body_r[key], rtol=1e-4,
                               atol=1e-4 * body_r[key].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The compiled paths: CUDA graphs of the CNN forward and of a decode step
+# ---------------------------------------------------------------------------
+def _resnet_mini(cuda, backend):
+    from repro_torch.core import hw
+    model = ZOO["resnet_mini"]
+    params = model.init_params(torch.Generator().manual_seed(0), device=cuda)
+    if backend == Backend.HEANA:
+        acc = pm.AcceleratorConfig.equal_area("heana", Dataflow.OS, 1.0)
+        cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                             noise_enabled=False)
+    else:
+        acc = hw.OperatingPoint.equal_area(backend.value, Dataflow.OS, 1.0)
+        cfg = acc.kernel_config(noise_enabled=False)
+    return model, params, acc, cfg
+
+
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW])
+def test_graphed_execute_equals_eager_for_every_bucket_on_card(cuda,
+                                                              backend):
+    from repro_torch.exec import power_of_two_buckets, trace_count
+    model, params, acc, cfg = _resnet_mini(cuda, backend)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for b in power_of_two_buckets(64):
+        plan = plan_for_network(params, acc, batch=b, in_hw=model.in_hw,
+                                lowering=model.graph, cache=PlanCache())
+        x = torch.randn(b, *model.in_hw, model.in_ch, generator=gen,
+                        device=cuda)
+        before = trace_count()
+        graphed = [execute_cnn(params, x, plan, cfg, lowering=model.graph,
+                               device=cuda, collect_activations=True)
+                   for _ in range(2)]
+        assert trace_count() == before + 1, b      # one capture, one replay
+        eager = execute_cnn(params, x, plan, cfg, lowering=model.graph,
+                            device=cuda, compiled=False,
+                            collect_activations=True)
+        for res in graphed:
+            assert torch.equal(res.logits, eager.logits), b
+            assert torch.equal(res.fingerprints, eager.fingerprints), b
+            assert all(torch.equal(a, e) for a, e in
+                       zip(res.activations, eager.activations)), b
+        # other parameter tensors: captured anew, never stale weights
+        twice = {k: v * 2 for k, v in params.items()}
+        res = execute_cnn(twice, x, plan, cfg, lowering=model.graph,
+                          device=cuda)
+        assert trace_count() == before + 2
+        assert torch.equal(res.logits, execute_cnn(
+            twice, x, plan, cfg, lowering=model.graph, device=cuda,
+            compiled=False).logits)
+
+
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW])
+def test_noisy_graphed_equals_noisy_eager_from_one_seed_on_card(cuda,
+                                                                backend):
+    model, params, acc, cfg = _resnet_mini(cuda, backend)
+    cfg = dataclasses.replace(cfg, noise_enabled=True)
+    plan = plan_for_network(params, acc, batch=8, in_hw=model.in_hw,
+                            lowering=model.graph, cache=PlanCache())
+    x = torch.randn(8, *model.in_hw, model.in_ch, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    run = lambda seed, compiled: execute_cnn(          # noqa: E731
+        params, x, plan, cfg, seed=seed, lowering=model.graph, device=cuda,
+        compiled=compiled).logits
+    a, b, c = run(7, True), run(7, True), run(8, True)
+    assert torch.equal(a, run(7, False)) and torch.equal(a, b)
+    assert torch.equal(c, run(8, False)) and not torch.equal(a, c)
+    assert bool(torch.isfinite(a).all())
+
+
+def test_zero_retraces_after_warmup_on_card(cuda):
+    from repro_torch.exec import ServingEngine, trace_count
+    model, params, acc, cfg = _resnet_mini(cuda, Backend.HEANA)
+    engine = ServingEngine(params, acc, cfg, lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=8,
+                           plan_cache=PlanCache(), device=cuda)
+    before = trace_count()
+    engine.warmup()
+    assert trace_count() == before + len(engine.buckets)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n in (1, 2, 3, 5, 8, 11, 17):
+        engine.infer(torch.randn(n, *model.in_hw, model.in_ch, device=cuda,
+                                 generator=gen))
+    assert trace_count() == before + len(engine.buckets)
+    assert engine.stats()["retraces_since_warmup"] == 0
+
+
+def test_threads_serve_concurrently_bitwise_on_card(cuda):
+    import threading
+    from repro_torch.exec import ServingEngine
+    model, params, acc, cfg = _resnet_mini(cuda, Backend.HEANA)
+    engine = ServingEngine(params, acc, cfg, lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=8,
+                           plan_cache=PlanCache(), device=cuda)
+    engine.warmup()
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    xs = [torch.randn((i % 4) + 1, *model.in_hw, model.in_ch, device=cuda,
+                      generator=gen) for i in range(8)]
+    expect = [engine.infer(x).cpu() for x in xs]
+    results = [[] for _ in xs]
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(10):
+                results[i].append(engine.infer(xs[i]).cpu())
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(xs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert errors == []
+    for got, want in zip(results, expect):
+        assert len(got) == 10 and all(torch.equal(g, want) for g in got)
+    assert engine.stats()["retraces_since_warmup"] == 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+def test_graphed_decode_step_equals_eager_on_card(cuda, arch):
+    from repro_torch.launch.serve import DecodeGraph
+    from repro_torch.models.transformer import tree_map
+    cfg = get_config(arch, smoke=True)
+    params = zoo.init_params(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    caches = zoo.init_caches(cfg, 2, 25, getattr(torch, cfg.dtype), cuda)
+    logits, state = zoo.prefill_fn(params, {"tokens": tokens.to(cuda)}, cfg,
+                                   caches)
+    tok = logits[:, -1].float().argmax(-1)[:, None]
+    step = DecodeGraph(params, cfg, state, tok)
+    eager = tree_map(torch.clone, state)
+    for i in range(4):
+        want, eager = zoo.decode_fn(params, tok, 21 + i, cfg, eager)
+        got = step(tok, 21 + i)
+        assert torch.equal(got, want), i
+        tok = want[:, -1].float().argmax(-1)[:, None]
+    for a, b in zip(step.state["layers"].values(),
+                    eager["layers"].values()):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+
+
+def test_capture_keeps_the_allocator_cache_warm_on_card(cuda):
+    from repro_torch.core import cuda_graph
+    x = torch.ones(1 << 20, device=cuda)
+    scratch = torch.empty(64 << 20, device=cuda)
+    del scratch
+    reserved = torch.cuda.memory_reserved(cuda)
+    graph, y = cuda_graph.capture(lambda: x * 2, cuda)
+    assert torch.cuda.memory_reserved(cuda) >= reserved
+    x.fill_(3)
+    graph.replay()
+    torch.cuda.synchronize(cuda)
+    assert bool((y == 6).all())
