@@ -15,10 +15,21 @@ starts and is timed on its own (``capture_s``); the reference's
 ``decode_s`` includes its jit compile (ROADMAP D4).  A capture or replay
 that fails raises.  On the CPU the step runs eagerly.
 
+Requests carry the modality stubs the reference feeds: zero ``frames``
+(B, encoder_seq, 80) for the audio family (whisper), zero ``patches`` (B,
+num_image_tokens, vision_embed_dim) for the vlm family (llava), whose
+prompt must be at least ``num_image_tokens`` long (``request_batch``).
+Audio's decode step reads the encoder output, which the graph holds as
+static state beside the caches.  Only the moe family still raises
+``NotImplementedError`` (ROADMAP A7c).
+
 Which kernels the prefill drives: for the ssm family (mamba2) the SSD scan
-through ``ssm_impl``, for the dense family (qwen2, h2o-danube3, gemma3)
-each attention layer's self-attention over the prompt through
-``attn_impl`` — the flash kernel (``kernels/flash_attention.py``).  Both
+through ``ssm_impl``, for the dense and vlm families (qwen2, h2o-danube3,
+gemma3, llava) each attention layer's self-attention over the prompt
+through ``attn_impl`` — the flash kernel (``kernels/flash_attention.py``),
+for the hybrid (zamba2) both (the shared attention block once a
+superblock), for audio (whisper) the flash kernel over the frames in each
+encoder layer (non-causal) and over the prompt in each decoder layer.  Both
 default to 'auto': the Hopper kernel on the card, the plain version on the
 CPU.  The reference's ``serve()`` leaves both at their jnp/XLA defaults,
 and no reference entry point reaches its Pallas flash kernel (only
@@ -51,6 +62,22 @@ from repro_torch.core.photonic_gemm import fold_seed
 from repro_torch.core.types import resolve_device
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.transformer import tree_map
+
+
+def request_batch(cfg, prompts: torch.Tensor) -> dict:
+    """The prefill's batch for ``prompts`` (B, S) as the reference's serve()
+    builds it: the tokens, plus zero frames (audio) or zero patches (vlm)
+    of ``cfg.dtype`` on the prompts' device."""
+    batch = {"tokens": prompts}
+    b = prompts.shape[0]
+    kw = dict(dtype=getattr(torch, cfg.dtype), device=prompts.device)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((b, cfg.encoder_seq,
+                                       zoo.WHISPER_FRAME_FEAT), **kw)
+    if cfg.family == "vlm":
+        batch["patches"] = torch.zeros((b, cfg.num_image_tokens,
+                                        cfg.vision_embed_dim), **kw)
+    return batch
 
 
 @dataclasses.dataclass
@@ -127,9 +154,9 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, state = zoo.prefill_fn(params, {"tokens": prompts.to(device)},
-                                   cfg, caches, ssm_impl=ssm_impl,
-                                   attn_impl=attn_impl)
+    inputs = request_batch(cfg, prompts.to(device))
+    logits, state = zoo.prefill_fn(params, inputs, cfg, caches,
+                                   ssm_impl=ssm_impl, attn_impl=attn_impl)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 

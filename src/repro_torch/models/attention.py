@@ -3,7 +3,9 @@
 
 Covers the dense family's attention: qwen2 (GQA with QKV bias, tiny
 kv_heads, ``head_pad``), h2o-danube3 (sliding window), gemma3 (5:1
-local:global), plus plain GQA and cross-attention (``kv_source``).  Not
+local:global), plus plain GQA (zamba2's shared block, llava's backbone)
+and whisper's non-causal encoder self-attention without RoPE and its
+cross-attention (``kv_source``).  Not
 ported yet: MLA (deepseek, ROADMAP A7c) raises ``NotImplementedError``; the
 reference's ``flash_decode_gqa`` and ``decode_axes`` (a ``shard_map``
 flash-decode over a device mesh, ROADMAP A9) are left out — the port runs
@@ -27,8 +29,9 @@ its plain version (``kernels.ops.flash_attention``) on head-folded
 (B*H, S, HD) tensors with K and V expanded per padded head, exactly as the
 reference's ``attn_impl="pallas"`` branch does; 'auto' is 'kernel' on CUDA
 tensors and 'ref' on CPU tensors.  The flash route applies where the
-reference's Pallas branch applies (S > 1, no ``kv_source``, no cache) and
-also to the prefill into an empty cache, which computes the same function:
+reference's Pallas branch applies (S > 1, no ``kv_source``, no cache:
+whisper's encoder, causal or not) and also to the prefill into an empty
+cache (every decoder's, whisper's included), which computes the same function:
 the prompt's own K and V under ``_mask_bias(positions, positions, window,
 causal)``.  Like the Pallas branch it masks by index, so the prompt's
 positions must run 0..S-1 (as every prefill's do).  Decode (S == 1)
@@ -42,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
@@ -93,9 +97,12 @@ def make_attention(maker: L.ParamMaker, name: str, spec: AttnSpec) -> dict:
 
 
 def init_cache(spec: AttnSpec, batch: int, max_len: int,
-               dtype=torch.bfloat16,
-               device: torch.device = torch.device("cpu")) -> dict:
+               dtype=torch.bfloat16, device=None) -> dict:
+    """An empty KV cache of ``dtype`` on ``device`` (the CUDA card unless
+    named): ``max_len`` slots, or the window's; ``pos`` -1 marks a slot
+    empty."""
     _no_mla(spec)
+    device = resolve_device(device)
     slots = min(spec.window, max_len) if spec.window else max_len
     shape = (batch, slots, spec.num_kv_heads, spec.head_dim)
     return {

@@ -6,8 +6,9 @@ one from its own ``torch.Generator``, seeded with ``fold_seed(seed,
 crc32(name))`` in place of the reference's ``jax.random.fold_in``, so a
 parameter's values depend only on the seed and its name — not on the
 order of construction or on the device.  Draws are made on the CPU and
-moved to ``device``.  The reference's spec and abstract modes are left
-out: nothing in the port lowers a model abstractly.
+moved to ``device``.  On the ``meta`` device nothing is drawn: the tree
+holds its shapes and dtypes only (the reference's abstract mode; its spec
+mode is left out, nothing in the port lowers a model abstractly).
 
 ``dense`` is the paper integration point: every projection in the zoo goes
 through it, and an active ``PhotonicCtx`` reroutes the matmul through the
@@ -42,6 +43,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, the reference's ``jax.nn.gelu``
+    (approximate=True by default; PyTorch's default is the erf form):
+    0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), one op at a time in
+    x's dtype with the constants rounded to it, as the reference rounds
+    (``torch.nn.functional.gelu(approximate="tanh")`` rounds once, and in
+    bfloat16 differs from the reference by an ulp in ~40% of entries)."""
+    c = float(torch.tensor(0.7978845608028654, dtype=x.dtype))
+    k = float(torch.tensor(0.044715, dtype=x.dtype))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def name_seed(seed: int, name: str) -> int:
     """The seed of the stream a named parameter or call site draws from."""
     return fold_seed(seed, zlib.crc32(name.encode()))
@@ -61,7 +74,7 @@ class ParamMaker:
               scale: Optional[float] = None) -> torch.Tensor:
         assert len(axes) == len(shape), (name, shape, axes)
         shape = tuple(shape)
-        if init == "zeros":
+        if self.device.type == "meta" or init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
         if init == "ones":
             return torch.ones(shape, dtype=self.dtype, device=self.device)

@@ -6,41 +6,43 @@ stack axis, so one tree map carries a reference param tree across; the
 port runs the stack as a Python loop (serving only: no remat, no
 ``lax.scan``).
 
-Families run so far: ``ssm`` (mamba2) and ``dense`` (qwen2, h2o-danube3
-with its sliding window, gemma3's local:global superblocks).  The others
-(the VLM projector, the hybrid's shared attention, MoE + MLA + MTP, the
-encoder-decoder) raise ``NotImplementedError`` naming their ROADMAP item.
-The reference's ``dist`` context is dropped: the port runs on one device.
+Families run: ``ssm`` (mamba2), ``dense`` (qwen2, h2o-danube3 with its
+sliding window, gemma3's local:global superblocks), ``hybrid`` (zamba2:
+mamba superblocks with ONE shared attention block applied after each —
+shared params, a KV cache per superblock) and ``vlm`` (llava: the dense
+backbone plus a projector whose output overwrites the embeddings of the
+first ``num_image_tokens`` positions).  ``moe`` (MoE + MLA + MTP) raises
+``NotImplementedError`` naming its ROADMAP item; the encoder-decoder
+(``audio``) is ``models/encdec.py``.  The reference's ``dist`` context is
+dropped: the port runs on one device.
 
 Serving: ``init_caches`` -> ``prefill`` -> ``decode_step`` with explicit
 cache trees throughout.  The prefill returns new caches; a decode step
 updates the caches it is given in place and returns them, and takes its
 position as a Python int or a 0-d tensor on the device, so that a step
-captures in a CUDA graph (``launch/serve.DecodeGraph``).  ``ssm_impl`` picks the SSD scan's impl and
-``attn_impl`` attention's (``models.attention.attention``): the flash
-kernel runs each attention layer's self-attention over the prompt.
+captures in a CUDA graph (``launch/serve.DecodeGraph``).  ``ssm_impl``
+picks the SSD scan's impl and ``attn_impl`` attention's
+(``models.attention.attention``): the flash kernel runs each attention
+layer's self-attention over the prompt.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+import os
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 
 # What each family still needs, by ROADMAP item.
-_UNPORTED = {
-    "vlm": "the VLM projector (ROADMAP A7d)",
-    "hybrid": "the hybrid's mamba blocks with a shared attention block "
-              "(ROADMAP A7b)",
-    "moe": "MoE, MLA and MTP (ROADMAP A7c)",
-    "audio": "the encoder-decoder (ROADMAP A7d)",
-}
-_PORTED = ("ssm", "dense")
+_UNPORTED = {"moe": "MoE, MLA and MTP (ROADMAP A7c)"}
+_PORTED = ("ssm", "dense", "hybrid", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -49,10 +51,11 @@ def check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family needs "
             f"{_UNPORTED[cfg.family]}, not ported yet; the port runs the "
-            f"ssm (mamba2) and dense (qwen2, h2o-danube3, gemma3) families")
+            f"ssm, dense, hybrid, vlm and audio families")
     if cfg.family not in _PORTED:
-        raise NotImplementedError(f"{cfg.name}: unknown family "
-                                  f"{cfg.family!r}")
+        raise NotImplementedError(
+            f"{cfg.name}: the decoder-only transformer does not run the "
+            f"{cfg.family!r} family (the audio family is models/encdec.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +108,18 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree, prefix: tuple = ()):
+    """Yield ``(path, leaf)`` over nested dicts (keys in sorted order) and
+    tuples; ``path`` is the tuple of keys and indices down to the leaf."""
+    if isinstance(tree, (dict, tuple)):
+        items = ((k, tree[k]) for k in sorted(tree)) \
+            if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            yield from tree_leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
 def attn_spec(cfg: ArchConfig, window: int = -1) -> A.AttnSpec:
     return A.AttnSpec(
         d_model=cfg.d_model, num_heads=cfg.num_heads,
@@ -133,12 +148,26 @@ def _make_sublayer(maker: L.ParamMaker, name: str, cfg: ArchConfig,
 
 
 def make_stacked(maker: L.ParamMaker, name: str, n: int, build_fn) -> dict:
-    """Stack n structurally-identical param trees on a leading STACK axis."""
-    parts = [build_fn(maker, f"{name}.{i}") for i in range(n)]
+    """Stack n structurally-identical param trees on a leading STACK axis.
+    The n trees are built on threads: each parameter draws from its own
+    named stream, so the values do not depend on the order, and PyTorch's
+    draws and copies release the interpreter lock (a 7 B model's host-side
+    draws would otherwise run on one core)."""
+    with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 1)) as pool:
+        parts = list(pool.map(lambda i: build_fn(maker, f"{name}.{i}"),
+                              range(n)))
     return tree_map(lambda *xs: torch.stack(xs), *parts)
 
 
 def _make_group(maker: L.ParamMaker, cfg: ArchConfig, g: Group) -> dict:
+    if g.kind == "mamba_shared":
+        def build(mk, nm):
+            return {f"m{i}": _make_sublayer(mk, f"{nm}.m{i}", cfg, "mamba", 0)
+                    for i in range(cfg.shared_attn_period)}
+        # ONE shared attention block (params reused at every superblock).
+        return {"stack": make_stacked(maker, g.name, g.repeats, build),
+                "shared_attn": _make_sublayer(maker, f"{g.name}.sh", cfg,
+                                              "attn_dense", -1)}
     if g.period:   # local:global superblock
         def build(mk, nm):
             return {f"l{i}": _make_sublayer(mk, f"{nm}.l{i}", cfg,
@@ -150,13 +179,12 @@ def _make_group(maker: L.ParamMaker, cfg: ArchConfig, g: Group) -> dict:
     return {"stack": make_stacked(maker, g.name, g.repeats, build)}
 
 
-def init_params(cfg: ArchConfig, seed: int,
-                device: torch.device = torch.device("cpu")) -> dict:
-    """Seeded params of ``cfg.dtype`` on ``device`` (each tensor drawn from
-    its own stream: ``layers.ParamMaker``)."""
+def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
+    """Seeded params of ``cfg.dtype`` on ``device`` (the CUDA card unless
+    named; each tensor drawn from its own stream: ``layers.ParamMaker``)."""
     check_supported(cfg)
     maker = L.ParamMaker(seed, dtype=getattr(torch, cfg.dtype),
-                         device=device)
+                         device=resolve_device(device))
     p: Dict[str, Any] = {
         "embed": L.make_embedding(maker, "embed", cfg.vocab_size,
                                   cfg.d_model),
@@ -166,6 +194,10 @@ def init_params(cfg: ArchConfig, seed: int,
         p["lm_head"] = {"table": maker.param(
             "lm_head.table", (cfg.vocab_size, cfg.d_model),
             (L.VOCAB, L.EMBED), scale=cfg.d_model ** -0.5)}
+    if cfg.vision_embed_dim:
+        p["projector"] = L.make_dense(maker, "projector",
+                                      cfg.vision_embed_dim, cfg.d_model,
+                                      (None, L.EMBED))
     for g in layer_plan(cfg):
         p[g.name] = _make_group(maker, cfg, g)
     return p
@@ -202,8 +234,10 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
                 return_state=False):
     """Run one plan group superblock by superblock; returns (x,
     new_caches_or_None).  Call sites are named as in the reference's
-    scanned body: after the group, and ``{group}.{i}`` for the i-th
-    sublayer of a local:global superblock.  A decode step
+    scanned body: after the group, ``{group}.{i}`` for the i-th sublayer
+    of a local:global superblock, and ``{group}.m{i}`` / ``{group}.sh``
+    for a hybrid superblock's i-th mamba sublayer and its shared
+    attention block (PhotonicCtx noise sites hang on them).  A decode step
     (``cache_index`` set) writes each layer's slice of ``caches`` in
     place and returns ``caches`` itself."""
     stacked = p["stack"]
@@ -212,7 +246,21 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
         layer_p = tree_map(lambda a, r=r: a[r], stacked)
         layer_c = None if caches is None else \
             tree_map(lambda a, r=r: a[r], caches)
-        if g.period:
+        if g.kind == "mamba_shared":
+            nc = {}
+            for i in range(cfg.shared_attn_period):
+                key = f"m{i}"
+                c = None if layer_c is None else layer_c[key]
+                x, nc[key] = _run_sublayer(
+                    layer_p[key], x, positions, cfg, "mamba", 0, ctx,
+                    f"{g.name}.m{i}", c, cache_index, ssm_impl, attn_impl,
+                    return_state)
+            c = None if layer_c is None else layer_c["sh"]
+            x, nc["sh"] = _run_sublayer(
+                p["shared_attn"], x, positions, cfg, "attn_dense", 0, ctx,
+                f"{g.name}.sh", c, cache_index, ssm_impl, attn_impl,
+                return_state)
+        elif g.period:
             nc = {}
             for i, (kind, win) in enumerate(zip(g.period, g.windows)):
                 key = f"l{i}"
@@ -237,19 +285,51 @@ def _head(params: dict, cfg: ArchConfig) -> dict:
     return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
-def _positions(b: int, s: int, device) -> torch.Tensor:
+def prompt_positions(b: int, s: int, device) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 of a prompt."""
     return torch.arange(s, dtype=torch.int32, device=device)[None] \
         .expand(b, s)
 
 
+def step_positions(index, b: int, device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """A decode step's position: (index as a 0-d int64 tensor on
+    ``device``, (B, 1) int32 positions).  ``index`` is a Python int (made
+    with a fill, no host copy) or already a 0-d tensor there (what a CUDA
+    graph of the step reads)."""
+    if not isinstance(index, torch.Tensor):
+        index = torch.full((), int(index), dtype=torch.int64, device=device)
+    return index, index.to(torch.int32).reshape(1, 1).expand(b, 1)
+
+
+def _embed(params: dict, tokens: torch.Tensor, ctx: L.PhotonicCtx,
+           prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; with ``prefix_embeds`` (B, S_img, vision_dim), the
+    VLM's patch embeddings projected (call site "projector") and cast to
+    the embeddings' dtype OVERWRITE the first S_img positions — the
+    sequence length already counts them.  A prompt shorter than S_img
+    raises (the reference would silently lengthen the sequence)."""
+    x = L.embed(params["embed"], tokens)
+    if prefix_embeds is None:
+        return x
+    n_img = prefix_embeds.shape[1]
+    if tokens.shape[1] < n_img:
+        raise ValueError(f"a prompt of {tokens.shape[1]} tokens is shorter "
+                         f"than its {n_img} image positions")
+    proj = L.dense(params["projector"], prefix_embeds, ctx, "projector")
+    return torch.cat([proj.to(x.dtype), x[:, n_img:]], dim=1)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             ctx: L.PhotonicCtx = L.EXACT_CTX,
-            ssm_impl: str = "auto", attn_impl: str = "auto") -> torch.Tensor:
-    """Scoring forward: tokens (B, S) -> logits (B, S, vocab)."""
+            ssm_impl: str = "auto", attn_impl: str = "auto",
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scoring forward: tokens (B, S) -> logits (B, S, vocab);
+    ``prefix_embeds`` as in ``_embed``."""
     check_supported(cfg)
     b, s = tokens.shape
-    x = L.embed(params["embed"], tokens)
-    positions = _positions(b, s, tokens.device)
+    x = _embed(params, tokens, ctx, prefix_embeds)
+    positions = prompt_positions(b, s, tokens.device)
     for g in layer_plan(cfg):
         x, _ = _scan_group(params[g.name], x, positions, cfg, g, ctx,
                            ssm_impl=ssm_impl, attn_impl=attn_impl)
@@ -261,12 +341,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 # Serving: caches, prefill, decode
 # ---------------------------------------------------------------------------
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16,
-                device: torch.device = torch.device("cpu")) -> dict:
-    """Zero caches with a leading stack axis per group: attention KV caches
-    of ``dtype`` (``max_len`` slots, or the window's), mamba state in
-    float32 (O(1) in ``max_len``)."""
+                dtype=torch.bfloat16, device=None) -> dict:
+    """Zero caches with a leading stack axis per group on ``device`` (the
+    CUDA card unless named): attention KV caches of ``dtype`` (``max_len``
+    slots, or the window's), mamba state in float32 (O(1) in
+    ``max_len``); a hybrid superblock holds its mamba sublayers' states
+    ``m{i}`` and the shared attention block's KV cache ``sh``."""
     check_supported(cfg)
+    device = resolve_device(device)
     caches = {}
     for g in layer_plan(cfg):
         def one(kind: str, window: int):
@@ -276,7 +358,11 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
             return A.init_cache(attn_spec(cfg, window), batch, max_len,
                                 dtype, device)
 
-        if g.period:
+        if g.kind == "mamba_shared":
+            block = {f"m{i}": one("mamba", 0)
+                     for i in range(cfg.shared_attn_period)}
+            block["sh"] = one("attn_dense", 0)
+        elif g.period:
             block = {f"l{i}": one(g.period[i], g.windows[i])
                      for i in range(len(g.period))}
         else:
@@ -289,13 +375,15 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             caches: dict, ctx: L.PhotonicCtx = L.EXACT_CTX,
-            ssm_impl: str = "auto",
-            attn_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
-    """Fill caches from a prompt; returns (last-token logits, caches)."""
+            ssm_impl: str = "auto", attn_impl: str = "auto",
+            prefix_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Fill caches from a prompt; returns (last-token logits, caches).
+    ``prefix_embeds``: the VLM's patch embeddings (``_embed``)."""
     check_supported(cfg)
     b, s = tokens.shape
-    x = L.embed(params["embed"], tokens)
-    positions = _positions(b, s, tokens.device)
+    x = _embed(params, tokens, ctx, prefix_embeds)
+    positions = prompt_positions(b, s, tokens.device)
     new_caches = {}
     for g in layer_plan(cfg):
         x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,
@@ -319,10 +407,7 @@ def decode_step(params: dict, token: torch.Tensor, index,
     check_supported(cfg)
     b = token.shape[0]
     x = L.embed(params["embed"], token)
-    if not isinstance(index, torch.Tensor):     # a fill, no host copy
-        index = torch.full((), int(index), dtype=torch.int64,
-                           device=token.device)
-    positions = index.to(torch.int32).reshape(1, 1).expand(b, 1)
+    index, positions = step_positions(index, b, token.device)
     new_caches = {}
     for g in layer_plan(cfg):
         x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,

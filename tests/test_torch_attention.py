@@ -264,7 +264,7 @@ def test_attention_prefill_and_decode_match_reference(which, window, dtype):
     xj, xt = _x(b, s, js.d_model, 2, dtype)
     pj, pt = _pos(b, s)
     jc0 = jattn.init_cache(js, b, s + steps, jnp.dtype(dtype))
-    tc0 = tattn.init_cache(ts, b, s + steps, tdt)
+    tc0 = tattn.init_cache(ts, b, s + steps, tdt, device="cpu")
     assert tc0["k"].shape == jc0["k"].shape == (
         b, min(window, s + steps) if window else s + steps,
         js.num_kv_heads, js.head_dim)
@@ -314,7 +314,8 @@ def test_attention_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="attn_impl must be one of"):
         tattn.attention(p, x, pos, spec, attn_impl="pallas")
     with pytest.raises(ValueError, match="one token"):
-        tattn.attention(p, x, pos, spec, cache=tattn.init_cache(spec, 1, 4),
+        tattn.attention(p, x, pos, spec,
+                        cache=tattn.init_cache(spec, 1, 4, device="cpu"),
                         cache_index=3)
     mla = dataclasses.replace(spec, mla=tconfigs.get_config(
         "deepseek-v2-236b", smoke=True).mla)

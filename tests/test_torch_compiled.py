@@ -53,7 +53,7 @@ from repro_torch.exec import report as treport
 from repro_torch.models import cnn as tcnn
 from repro_torch.models import model_zoo as tzoo
 from repro_torch.models.lowering import params_from_jax
-from repro_torch.models.transformer import tree_map
+from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.models.zoo_cnn import ZOO
 
 from test_torch_slice import _check_logits, _reference_run
@@ -457,14 +457,6 @@ def test_save_summary_writes_where_told(reported, tmp_path):
 # ---------------------------------------------------------------------------
 # decode_fn with a 0-d tensor position
 # ---------------------------------------------------------------------------
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
-    else:
-        yield prefix, tree
-
-
 def _close(got, want, what):
     got = got.detach().to(torch.float32).numpy()
     want = np.asarray(want, np.float32)
@@ -505,11 +497,11 @@ def test_decode_fn_tensor_index_equals_int_and_reference(arch):
         tl, ts = tzoo.decode_fn(tp, tok_t, torch.tensor(s + step), tcfg, ts)
         il, ts_int = tzoo.decode_fn(tp, tok_t, s + step, tcfg, ts_int)
         assert torch.equal(tl, il), step
-        for (path, a), (_, c) in zip(_leaves(ts), _leaves(ts_int)):
+        for (path, a), (_, c) in zip(tree_leaves(ts), tree_leaves(ts_int)):
             assert torch.equal(a, c), (step, path)
         _close(tl, jl, f"logits {step}")
-        for (path, a), (jpath, w) in zip(_leaves(ts["layers"]),
-                                         _leaves(js["layers"])):
+        for (path, a), (jpath, w) in zip(tree_leaves(ts["layers"]),
+                                         tree_leaves(js["layers"])):
             assert path == jpath
             if path[-1] == "pos":
                 np.testing.assert_array_equal(a.numpy(), np.asarray(w))

@@ -6,9 +6,10 @@ elsewhere).  Run them on the card with
 They hold the CUDA kernels against their plain PyTorch versions on the
 card — the TAOM GEMM's two routes (the float32 body on pre-quantized
 operands, and the fused int8 route with quantize and rescale inside) bit
-for bit where the integer psums stay below 2^24 (asserted), the SSD scan within rtol 1e-4 and atol 1e-4 * max|plain| (its
-sums run in another order), the flash-attention kernel within rtol 1e-5
-and atol 1e-5 * max|plain| in float32 and one bf16 ulp of max|plain|'s
+for bit where the integer psums stay below 2^24 (asserted), the SSD scan
+within rtol 1e-4 and atol 1e-4 * max|plain| (its sums run in another
+order), the flash-attention kernel within rtol 1e-5 and atol 1e-5 *
+max|plain| in float32 and one bf16 ulp of each query row's max|plain|
 binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
 version's over 128-key blocks; the bf16 kernel's P reaches the tensor
 cores as two bf16 terms, within 2^-17 of the float32 P) — and run the
@@ -33,6 +34,7 @@ from repro_torch.exec import PlanCache, execute_cnn, plan_for_network
 from repro_torch.kernels import flash_attention, ops, ref, ssd_scan, taom_gemm
 from repro_torch.models import lowering as lw
 from repro_torch.models import model_zoo as zoo
+from repro_torch.models.transformer import tree_leaves
 from repro_torch.models.zoo_cnn import ZOO
 
 pytestmark = pytest.mark.gpu
@@ -338,6 +340,7 @@ def _ssd_close(got, want):
     (96, 1024, 64, 128, 128, 1.0),    # mamba2-130m, batch 4
     (8, 64, 16, 16, 8, 1.0),          # the smoke config
     (24, 512, 64, 64, 128, 1.0),      # zamba2's head and state
+    (448, 1000, 64, 64, 128, 1.0),    # zamba2-7b served: batch 4 x 112
     (8, 1000, 64, 128, 128, 1.0),     # ragged L through ops.ssd_scan
     (3, 40, 16, 24, 16, 1.0), (2, 33, 8, 8, 16, 1.0),
     (4, 256, 128, 128, 128, 1.0),     # the largest head, P = 128
@@ -433,6 +436,45 @@ def test_mamba_prefill_through_the_kernel_on_card(cuda):
                           sr["layers"]["mamba"][key])
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "llava-next-mistral-7b",
+                                  "whisper-tiny"])
+def test_family_prefill_through_the_kernels_on_card(cuda, arch):
+    """The hybrid, VLM and encoder-decoder prefills (float32 smoke configs)
+    with the kernels against the plain versions: the SSD wrapper once a
+    mamba layer, the flash kernel once an attention layer (whisper's
+    encoder and decoder)."""
+    from repro_torch.launch.serve import request_batch
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    params = zoo.init_params(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 21),
+                           generator=torch.Generator().manual_seed(1))
+    batch = request_batch(cfg, tokens.to(cuda))
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn(batch["patches"].shape, device=cuda)
+    out = {}
+    for impl in ("kernel", "ref"):
+        caches = zoo.init_caches(cfg, 2, 21, torch.float32, device=cuda)
+        before = (ssd_scan.LAUNCHES, flash_attention.LAUNCHES)
+        out[impl] = zoo.prefill_fn(params, batch, cfg, caches,
+                                   ssm_impl=impl, attn_impl=impl)
+        launched = (ssd_scan.LAUNCHES - before[0],
+                    flash_attention.LAUNCHES - before[1])
+        if impl == "ref":
+            assert launched == (0, 0)
+        elif cfg.family == "hybrid":
+            assert launched == (cfg.num_layers,
+                                cfg.num_layers // cfg.shared_attn_period)
+        elif cfg.family == "audio":
+            assert launched == (0, cfg.encoder_layers + cfg.num_layers)
+        else:
+            assert launched == (0, cfg.num_layers)
+    for got, want in zip(tree_leaves(out["kernel"]),
+                         tree_leaves(out["ref"])):
+        assert got[0] == want[0]
+        assert torch.allclose(got[1].float(), want[1].float(), rtol=1e-4,
+                              atol=1e-4 * want[1].float().abs().max()), got[0]
+
+
 def _flash_inputs(cuda, bh, s, d, dtype, seed):
     gen = torch.Generator(device=cuda).manual_seed(seed)
     return [torch.randn(bh, s, d, generator=gen, device=cuda)
@@ -443,8 +485,11 @@ def _flash_close(got, want):
     scale = want.float().abs().max().item()
     if want.dtype == torch.float32:
         return torch.allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
-    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
-    return (got.float() - want.float()).abs().max().item() <= ulp
+    # one bf16 ulp of each query row's max|plain| binade
+    err = (got.float() - want.float()).abs().amax(-1)
+    row_max = want.float().abs().amax(-1).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+    return bool((err <= ulp).all())
 
 
 @pytest.mark.parametrize("bh,s,d,causal,window,dtype", [
@@ -464,7 +509,12 @@ def _flash_close(got, want):
     (3, 65, 64, True, 0, "bfloat16"),      # one key past a tile
     (2, 300, 64, True, 40, "bfloat16"),    # window starts inside a tile
     (2, 333, 200, True, 100, "bfloat16"),  # D 200 (four atoms), a window
-    (2, 200, 128, False, 50, "bfloat16")])  # window without causal
+    (2, 200, 128, False, 50, "bfloat16"),  # window without causal
+    # the served shapes of the hybrid, VLM and encoder-decoder families
+    (128, 1000, 112, True, 0, "bfloat16"),  # zamba2-7b, batch 4 x 32
+    (64, 3072, 128, True, 0, "bfloat16"),   # llava, batch 2 x 32 (GQA 4:1)
+    (24, 1500, 64, False, 0, "bfloat16"),   # whisper encoder, batch 4 x 6
+    (24, 64, 64, True, 0, "bfloat16")])     # whisper decoder prompt
 def test_flash_kernel_matches_plain_on_card(cuda, bh, s, d, causal, window,
                                             dtype):
     q, k, v = _flash_inputs(cuda, bh, s, d, dtype, seed=s + d)
@@ -661,17 +711,19 @@ def test_threads_serve_concurrently_bitwise_on_card(cuda):
     assert engine.stats()["retraces_since_warmup"] == 0
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b", "zamba2-7b",
+                                  "llava-next-mistral-7b", "whisper-tiny"])
 def test_graphed_decode_step_equals_eager_on_card(cuda, arch):
-    from repro_torch.launch.serve import DecodeGraph
+    from repro_torch.launch.serve import DecodeGraph, request_batch
     from repro_torch.models.transformer import tree_map
     cfg = get_config(arch, smoke=True)
     params = zoo.init_params(cfg, 0, device=cuda)
     tokens = torch.randint(0, cfg.vocab_size, (2, 21),
                            generator=torch.Generator().manual_seed(1))
     caches = zoo.init_caches(cfg, 2, 25, getattr(torch, cfg.dtype), cuda)
-    logits, state = zoo.prefill_fn(params, {"tokens": tokens.to(cuda)}, cfg,
-                                   caches)
+    logits, state = zoo.prefill_fn(params, request_batch(cfg,
+                                                         tokens.to(cuda)),
+                                   cfg, caches)
     tok = logits[:, -1].float().argmax(-1)[:, None]
     step = DecodeGraph(params, cfg, state, tok)
     eager = tree_map(torch.clone, state)
@@ -680,10 +732,9 @@ def test_graphed_decode_step_equals_eager_on_card(cuda, arch):
         got = step(tok, 21 + i)
         assert torch.equal(got, want), i
         tok = want[:, -1].float().argmax(-1)[:, None]
-    for a, b in zip(step.state["layers"].values(),
-                    eager["layers"].values()):
-        for key in a:
-            assert torch.equal(a[key], b[key]), key
+    for (key, a), (_, b) in zip(tree_leaves(step.state),
+                                tree_leaves(eager)):
+        assert torch.equal(a, b), key
 
 
 def test_capture_keeps_the_allocator_cache_warm_on_card(cuda):

@@ -35,6 +35,7 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import model_zoo as tzoo
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttransformer
+from repro_torch.models.transformer import tree_leaves
 
 ARCH = "mamba2-130m"
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
@@ -55,14 +56,6 @@ def _close(got, want, tol, what=""):
     assert got.shape == want.shape, (what, got.shape, want.shape)
     err = float(np.abs(got - want).max())
     assert err <= tol * float(np.abs(want).max()), (what, err)
-
-
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], prefix + (k,))
-    else:
-        yield prefix, tree
 
 
 def _tokens(vocab, b, s, seed=0):
@@ -99,8 +92,8 @@ def test_params_from_jax_keeps_structure_shapes_dtypes(dtype):
     jcfg, _ = _cfgs(dtype)
     jp = jzoo.init_params(jcfg, jax.random.PRNGKey(0))
     tp = tzoo.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
-    want = list(_leaves(jp))
-    got = list(_leaves(tp))
+    want = list(tree_leaves(jp))
+    got = list(tree_leaves(tp))
     assert [k for k, _ in got] == [k for k, _ in want]
     for (key, t), (_, j) in zip(got, want):
         assert tuple(t.shape) == tuple(j.shape), key
@@ -119,14 +112,14 @@ def test_init_params_tree_matches_reference(smoke):
                                num_layers=2)
     want = jzoo.init_params(jcfg, jax.random.PRNGKey(0), abstract=True)
     tp = tzoo.init_params(tcfg, 0, device="cpu")
-    got = list(_leaves(tp))
-    assert [k for k, _ in got] == [k for k, _ in _leaves(want)]
-    for (key, t), (_, j) in zip(got, _leaves(want)):
+    got = list(tree_leaves(tp))
+    assert [k for k, _ in got] == [k for k, _ in tree_leaves(want)]
+    for (key, t), (_, j) in zip(got, tree_leaves(want)):
         assert tuple(t.shape) == tuple(j.shape), key
         assert str(t.dtype).replace("torch.", "") == str(j.dtype), key
     again = tzoo.init_params(tcfg, 0, device="cpu")
     assert all(torch.equal(a, b) for (_, a), (_, b) in
-               zip(got, _leaves(again)))
+               zip(got, tree_leaves(again)))
     other = tzoo.init_params(tcfg, 1, device="cpu")
     assert not torch.equal(tp["embed"]["table"], other["embed"]["table"])
 
@@ -356,28 +349,30 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 @pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
                                   if a != ARCH])
 def test_unported_families_raise(arch):
-    """Families the port does not run raise, naming their ROADMAP item; the
-    dense family (qwen2, h2o-danube3, gemma3), ported since, runs through
-    the same entry points (its conformance: tests/test_torch_attention.py).
-    """
+    """The moe family, which the port does not run yet, raises at every
+    entry point, naming its ROADMAP item; the others — dense (qwen2,
+    h2o-danube3, gemma3), hybrid (zamba2), vlm (llava) and audio
+    (whisper), ported since — run through the same entry points (their
+    conformance: tests/test_torch_attention.py, tests/test_torch_families.
+    py)."""
     cfg = tconfigs.get_config(arch, smoke=True)
-    if cfg.family == "dense":
+    if cfg.family != "moe":
         params = tzoo.init_params(cfg, 0, device="cpu")
-        caches = tzoo.init_caches(cfg, 1, 8, device="cpu")
-        logits, state = tzoo.prefill_fn(
-            params, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg,
-            caches)
+        caches = tzoo.init_caches(cfg, 1, 10, device="cpu")
+        batch = tserve.request_batch(cfg, torch.zeros(1, 8,
+                                                      dtype=torch.long))
+        logits, state = tzoo.prefill_fn(params, batch, cfg, caches)
         logits, _ = tzoo.decode_fn(params, torch.zeros(1, 1,
                                                        dtype=torch.long),
-                                   4, cfg, state)
+                                   8, cfg, state)
         assert logits.shape == (1, 1, cfg.vocab_size)
-        assert tserve.serve(arch, batch=1, prompt_len=4, gen=2,
-                            device="cpu").tokens.shape == (1, 6)
+        assert tserve.serve(arch, batch=1, prompt_len=8, gen=2,
+                            device="cpu").tokens.shape == (1, 10)
         return
     for call in (lambda: tzoo.init_params(cfg, 0, device="cpu"),
                  lambda: tzoo.init_caches(cfg, 1, 8, device="cpu"),
                  lambda: tzoo.prefill_fn({}, {"tokens": None}, cfg, {}),
                  lambda: tzoo.decode_fn({}, None, 0, cfg, {}),
                  lambda: tserve.serve(arch, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
             call()
