@@ -104,7 +104,10 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 causal; llava: BH 64, S 3072, D 128, causal; whisper's
                 encoder: BH 24, S 1500, D 64, non-causal), each held in
                 bf16 and timed with the plain version and SDPA beside the
-                bound;
+                bound; and deepseek-v2-236b's MLA prefill (BH 512 = batch 4
+                x 128 heads, S 1000, D 192 = nope 128 + rope 64, causal;
+                the bound and SDPA on the function's V width, 128, the
+                kernel on V zero-padded to 192 as the model pads it);
   7. qwen2    — serve qwen2-0.5b at its full width through
                 ``launch/serve.serve`` (24 layers, d_model 896, 14 of 16
                 padded heads, GQA over 2 KV heads, QKV bias, seeded random
@@ -143,7 +146,28 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 state leaf); a 6-bit HEANA photonic prefill of the cut at
                 M = 512 rows bit-equal between the TAOM kernels and their
                 plain version;
-  11. report  — the kernels' JSON line (each kernel's launches summed over
+  11. moe     — serve deepseek-v2-236b at its full width (d_model 5120,
+                128 heads, MLA kv_lora 512 / q_lora 1536 / rope 64 / nope
+                128 / v 128, 160 routed experts of 1536 with top-6 and 2
+                shared) cut in depth to 1 dense + 2 MoE layers (~9.3 G
+                parameters, bf16, seeded random; ``serve(repeats=...)``),
+                batch 4, prompt 1000, 16 greedy tokens, as phases 8-10:
+                flash 3 in the prefill, none in decode, no SSD or TAOM
+                launch; eager greedy tokens equal to graphed; profiles and
+                the decode graph.  Then a float32 cut (1 dense + 1 MoE
+                layer; the served params' first layers in float32) held
+                sublayer by sublayer, kernel route against plain route,
+                each fed the plain route's input: outputs within 1e-4 of
+                max|plain| on every token whose routing (top-k set, kept
+                experts) agrees, every token whose routing differs a
+                near-tie of the plain run (the k-th and (k+1)-th
+                probabilities within 1e-5 of the k-th; counted and
+                printed), ckv and kr within 1e-4, pos equal; and a 6-bit
+                HEANA photonic prefill of that cut in bf16 at M = 512
+                (attention on the dense route on both sides, 9 TAOM calls
+                a layer) bit-equal between the TAOM kernels and their
+                plain version;
+  12. report  — the kernels' JSON line (each kernel's launches summed over
                 the served paths, and per path), the card's name and power
                 limit, and the result line.
 
@@ -189,6 +213,12 @@ SSD_SHAPES = ((96, 1024, 64, 128, 128, 1.0), (8, 64, 16, 16, 8, 1.0),
               (448, 1000, 64, 64, 128, 1.0))
 ZAMBA_SSD = (448, 1024, 64, 64, 128)
 QWEN_ARCH = "qwen2-0.5b"         # phase 7's model, at its full width
+# Phase 11's model: deepseek-v2-236b at its full width, cut in depth to 1
+# dense + 2 MoE layers (~9.3 G parameters, ~18.7 GB in bf16).
+MOE_ARCH = "deepseek-v2-236b"
+MOE_REPEATS = {"dense_head": 1, "moe_body": 2}
+MOE_BATCH, MOE_PROMPT = 4, 1000
+NEAR_TIE = 1e-5                  # phase 11's routing: a near-tie's gap
 # Phases 8-10's models at their full widths: (tag, arch, batch, prompt).
 FAMILIES = (("zamba2", "zamba2-7b", 4, 1000),
             ("llava", "llava-next-mistral-7b", 2, 3072),
@@ -216,16 +246,19 @@ FLASH_SHAPES = ((64, 1000, 64, True, 0, "bfloat16"),
                 (2, 1, 64, True, 0, "bfloat16"),
                 (4, 65, 64, True, 0, "bfloat16"),
                 (4, 1000, 64, True, 40, "bfloat16"))
-# The served prefills of phases 8-10 give the kernel four more shapes,
+# The served prefills of phases 8-11 give the kernel five more shapes,
 # each held against the plain version in bf16 and timed beside SDPA:
-# (batch, heads, S, D, causal) — zamba2-7b's shared block (D 112),
-# llava-next-mistral-7b's layers (D 128, K and V expanded from 8 to 32
-# heads), whisper-tiny's encoder (non-causal over 1500 frames) and its
-# decoder's prompt (causal, 64 tokens).
-FAMILY_FLASH = ((4, 32, 1000, 112, True), (2, 32, 3072, 128, True),
-                (4, 6, 1500, 64, False), (4, 6, 64, 64, True))
+# (batch, heads, S, D, causal, the function's V width) — zamba2-7b's
+# shared block (D 112), llava-next-mistral-7b's layers (D 128, K and V
+# expanded from 8 to 32 heads), whisper-tiny's encoder (non-causal over
+# 1500 frames) and its decoder's prompt (causal, 64 tokens), and
+# deepseek-v2-236b's MLA (one head of nope 128 + rope 64 = 192, V of 128
+# zero-padded to 192 for the kernel).
+FAMILY_FLASH = ((4, 32, 1000, 112, True, 112), (2, 32, 3072, 128, True, 128),
+                (4, 6, 1500, 64, False, 64), (4, 6, 64, 64, True, 64),
+                (4, 128, 1000, 192, True, 128))
 FLASH_SHAPES += tuple((b * h, s, d, causal, 0, "bfloat16")
-                      for b, h, s, d, causal in FAMILY_FLASH)
+                      for b, h, s, d, causal, _ in FAMILY_FLASH)
 
 
 def log(msg: str) -> None:
@@ -841,19 +874,22 @@ def lm_phase(dev) -> dict:
 
 
 def flash_bound(bh: int, s: int, d: int, causal: bool, window: int,
-                elt_bytes: int) -> dict:
+                elt_bytes: int, dv: int = 0) -> dict:
     """Least time for one flash-attention call: q, k, v read once and o
-    written once (bytes); and 4 D flops per (query, key) pair the mask
-    lets through (Q K^T and P V; masked pairs need no work), over the
+    written once (bytes); and 2 (D + Dv) flops per (query, key) pair the
+    mask lets through (Q K^T and P V; masked pairs need no work), over the
     card's rate for the inputs' type: bf16 on the tensor cores, float32
-    on the CUDA cores.  ``f32_floor_ms`` is the same flops at the float32
-    CUDA-core rate, the least time for the kernel's float32 instance,
-    which computes there."""
+    on the CUDA cores.  ``dv`` is the function's V width (MLA: 128 under
+    a 192-wide head; 0 = D): the kernel's zero-padded V columns are work
+    the function does not need.  ``f32_floor_ms`` is the same flops at the
+    float32 CUDA-core rate, the least time for the kernel's float32
+    instance, which computes there."""
+    dv = dv or d
     pairs = sum((qi + 1 if causal else s) -
                 (max(0, qi - window + 1) if window else 0)
                 for qi in range(s))
-    flops = 4.0 * bh * d * pairs
-    bytes_ms = 4.0 * bh * s * d * elt_bytes / HBM_BYTES_PER_S * 1e3
+    flops = 2.0 * bh * (d + dv) * pairs
+    bytes_ms = 2.0 * bh * s * (d + dv) * elt_bytes / HBM_BYTES_PER_S * 1e3
     rate = BF16_FLOPS_PER_S if elt_bytes == 2 else F32_FLOPS_PER_S
     ops_ms = flops / rate * 1e3
     return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
@@ -966,14 +1002,17 @@ def flash_phase(dev) -> dict:
         log(f"[flash] BH={bh} S={s} D={d} window={window} bf16: kernel_ms="
             f"{ms:.5f} bound_ms={b['bound_ms']:.5f} ({b['bound_by']}), "
             f"{b['gflop'] / ms:.1f} TFLOP/s (device time, CUDA graph replay)")
-    # The hybrid's, the VLM's and the encoder-decoder's served shapes:
-    # kernel, plain version and SDPA (on the same tensors as (batch,
-    # heads, S, D)) beside the bound.
+    # The hybrid's, the VLM's, the encoder-decoder's and the moe family's
+    # served shapes: kernel, plain version and SDPA (on the same tensors as
+    # (batch, heads, S, D); for MLA on V's own 128 columns, the kernel on
+    # V zero-padded to D as the model pads it) beside the bound.
     row["families"] = []
-    for b, h, s, d, causal in FAMILY_FLASH:
+    for b, h, s, d, causal, dv in FAMILY_FLASH:
         q, k, v = inputs(b * h, s, d, "bfloat16")
+        v[..., dv:] = 0
         q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
-        shape = {"bh": b * h, "s": s, "d": d, "causal": causal,
+        v4 = v4[..., :dv]
+        shape = {"bh": b * h, "s": s, "d": d, "dv": dv, "causal": causal,
                  "ms": device_ms(lambda: flash_attention.flash_attention_fwd(
                      q, k, v, causal=causal), iters=10, replays=5),
                  "plain_ms": device_ms(lambda: ops._flash_blocked(
@@ -981,12 +1020,12 @@ def flash_phase(dev) -> dict:
                  "library_ms": device_ms(
                      lambda: F.scaled_dot_product_attention(
                          q4, k4, v4, is_causal=causal), iters=10, replays=5),
-                 **flash_bound(b * h, s, d, causal, 0, 2)}
+                 **flash_bound(b * h, s, d, causal, 0, 2, dv)}
         shape["sdpa_ratio"] = shape["ms"] / shape["library_ms"]
         row["families"].append(shape)
-        log("[flash] served BH={bh} S={s} D={d} causal={causal} bf16: "
-            "kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms(scaled_"
-            "dot_product_attention)={library_ms:.5f} (kernel / SDPA "
+        log("[flash] served BH={bh} S={s} D={d} Dv={dv} causal={causal} "
+            "bf16: kernel_ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms("
+            "scaled_dot_product_attention)={library_ms:.5f} (kernel / SDPA "
             "{sdpa_ratio:.3f}) bound_ms={bound_ms:.5f} ({bound_by}; bytes "
             "{bytes_ms:.5f}, operations {ops_ms:.5f}), {tflops:.1f} TFLOP/s "
             "(device times, CUDA graph replay)".format(
@@ -1119,15 +1158,19 @@ def qwen_phase(dev) -> dict:
 
 
 def cut_config(cfg):
-    """Phases 8-10's float32 and photonic copies: the hybrid cut to one
-    superblock and its tail, the VLM to 2 layers, whisper (4 + 4 layers)
-    whole; every width kept."""
+    """Phases 8-11's float32 and photonic copies: the hybrid cut to one
+    superblock and its tail, the VLM to 2 layers, the moe family to 1
+    dense + 1 MoE layer, whisper (4 + 4 layers) whole; every width
+    kept."""
     import dataclasses
+    from repro_torch.launch.serve import cfg_with_repeats
     if cfg.family == "hybrid":
         p = cfg.shared_attn_period
         return dataclasses.replace(cfg, num_layers=p + cfg.num_layers % p)
     if cfg.family == "vlm":
         return dataclasses.replace(cfg, num_layers=2)
+    if cfg.family == "moe":
+        return cfg_with_repeats(cfg, {"dense_head": 1, "moe_body": 1})
     return cfg
 
 
@@ -1135,7 +1178,7 @@ def family_launches(cfg) -> tuple:
     """(TAOM, SSD, flash) launches of one exact prefill of ``cfg``: the SSD
     wrapper once a mamba layer, the flash kernel once an attention layer
     (the hybrid's shared block once a superblock; whisper's encoder and
-    decoder layers)."""
+    decoder layers; each MLA layer)."""
     if cfg.family == "hybrid":
         return 0, cfg.num_layers, cfg.num_layers // cfg.shared_attn_period
     if cfg.family == "audio":
@@ -1146,31 +1189,33 @@ def family_launches(cfg) -> tuple:
 def photonic_gemms(cfg) -> int:
     """TAOM wrapper calls of one photonic prefill: every dense (in_proj
     and out_proj a mamba layer; wq, wk, wv, wo and the MLP's an attention
-    layer; the projector; whisper's frame projection, self- and
-    cross-attention and non-gated MLP); the logits' head stays exact."""
+    layer; MLA's wq_a, wq, wkv_a, wk_b, wv_b and wo and the dense MLP's or
+    the shared experts' three; the projector; whisper's frame projection,
+    self- and cross-attention and non-gated MLP); the logits' head and
+    the routed experts stay exact."""
     if cfg.family == "hybrid":
         return 2 * cfg.num_layers + 7 * (cfg.num_layers //
                                          cfg.shared_attn_period)
     if cfg.family == "audio":
         return 1 + 6 * cfg.encoder_layers + 10 * cfg.num_layers
+    if cfg.mla is not None:
+        return 9 * cfg.num_layers
     return 7 * cfg.num_layers + (1 if cfg.vision_embed_dim else 0)
 
 
-def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
-    """Phases 8-10: ``arch`` served at its full width through
-    ``launch/serve.serve`` (seeded random bf16 weights), then its float32
-    copy cut in depth against the plain versions, a photonic prefill
-    against the TAOM plain version, profiles and the decode graph."""
-    import dataclasses
+def served_phase(dev, tag: str, arch: str, cfg, batch: int, prompt: int,
+                 repeats=None) -> tuple:
+    """The served part of phases 8-11: ``arch`` (``cfg``: its full width,
+    cut in depth by ``repeats``) through ``launch/serve.serve`` with
+    seeded random bf16 weights, the counts zeroed just before it; the
+    params drawn again (timed); an eager decode loop's tokens against
+    serve()'s graphed ones; profiles of a prefill and an eager decode step
+    and the decode graph.  Returns (row, params, prompts)."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.types import Backend, PhotonicConfig
     from repro_torch.launch.serve import DecodeGraph, request_batch, serve
     from repro_torch.models import model_zoo as zoo
-    from repro_torch.models.layers import PhotonicCtx
-    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.models.transformer import tree_leaves
 
-    cfg = get_config(arch)
     want = family_launches(cfg)
     names = ("ssd_scan", "flash_attention_fwd_kernel")
 
@@ -1178,7 +1223,7 @@ def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
     # and read just after.
     zero_counts()
     res = serve(arch, smoke=False, batch=batch, prompt_len=prompt,
-                gen=LM_GEN, seed=0, device=dev)
+                gen=LM_GEN, seed=0, device=dev, repeats=repeats)
     launches = counts()
     assert launches == want, (arch, launches, want)
     toks = res.tokens
@@ -1279,7 +1324,79 @@ def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
             f"{(halved - before).float().abs().max().item():.3e}; restored "
             f"they are bit-equal")
         del graph
-    del params, state, logits, inputs
+    del state, logits, inputs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "serve": {
+        "prefill_ms": res.prefill_s * 1e3, "capture_ms": res.capture_s * 1e3,
+        "decode_step_ms": res.decode_s * 1e3 / (LM_GEN - 1),
+        "tokens_per_s": res.tokens_per_s,
+        "eager_step_ms": eager_s * 1e3 / (LM_GEN - 1)},
+        "init_s": init_s, "n_params": n_params,
+        "prefill_host": prefill_host, "profile": split, "step": step,
+        "graphed": graphed}, params, prompts
+
+
+def photonic_cut_check(tag: str, cfgp, paramsp, prompts, dev,
+                     attn_impl: str = "auto") -> None:
+    """A photonic prefill (HEANA, 6-bit, N=83, noise off) of the cut model
+    ``cfgp`` in bf16, at M = 512 rows as phase 2 cuts the LM GEMMs
+    (whisper: 512 frames, a 64-token prompt; llava: 448 image positions of
+    a 512-token prompt): the TAOM kernels bit-equal to their plain
+    version, logits and every state leaf."""
+    import torch
+    from repro_torch.core.types import Backend, PhotonicConfig
+    from repro_torch.launch.serve import request_batch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.layers import PhotonicCtx
+    from repro_torch.models.transformer import tree_leaves
+    rows = 64 if cfgp.family == "audio" else 512
+    inputsp = request_batch(cfgp, prompts[:1, :rows].to(dev))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    if cfgp.family == "audio":
+        inputsp["frames"] = torch.randn(
+            (1, min(512, cfgp.encoder_seq), inputsp["frames"].shape[2]),
+            generator=gen, device=dev).bfloat16()
+    if cfgp.family == "vlm":
+        inputsp["patches"] = torch.randn(
+            (1, 448, cfgp.vision_embed_dim), generator=gen,
+            device=dev).bfloat16()
+    pcfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                          noise_enabled=False)
+    phot = {}
+    for impl in ("kernel", "ref"):
+        caches = zoo.init_caches(cfgp, 1, rows, torch.bfloat16, dev)
+        zero_counts()
+        phot[impl] = zoo.prefill_fn(paramsp, inputsp, cfgp, caches,
+                                    ctx=PhotonicCtx(cfg=pcfg, impl=impl),
+                                    attn_impl=attn_impl)
+        torch.cuda.synchronize()
+        expect = photonic_gemms(cfgp) if impl == "kernel" else 0
+        assert counts()[0] == expect, (impl, counts(), expect)
+    (lk, sk), (lr, sr) = phot["kernel"], phot["ref"]
+    for (key, g), (_, w) in zip(tree_leaves({"logits": lk, **sk}),
+                                tree_leaves({"logits": lr, **sr})):
+        assert torch.equal(g, w), (key, (g.float() - w.float()).abs().max())
+    log(f"[{tag}] photonic ctx (HEANA, 6-bit, N=83, noise off) prefill of "
+        f"the {cfgp.num_layers}-layer cut at M = {rows} rows, attention "
+        f"attn_impl={attn_impl!r}: bit-equal "
+        f"between the TAOM kernels ({photonic_gemms(cfgp)} wrapper calls) "
+        f"and the plain version, logits and every state leaf")
+
+
+def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
+    """Phases 8-10: ``arch`` served at its full width (``served_phase``),
+    then its float32 copy cut in depth against the plain versions and a
+    photonic prefill against the TAOM plain version."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import request_batch
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import tree_leaves, tree_map
+
+    cfg = get_config(arch)
+    row, params, prompts = served_phase(dev, tag, arch, cfg, batch, prompt)
+    del params
     torch.cuda.empty_cache()
 
     # float32 copy cut in depth: prefill + 4 decode steps with the kernels
@@ -1322,54 +1439,135 @@ def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
         f"(tolerance {SSD_TOL})")
     del runs
 
-    # A photonic prefill (HEANA, 6-bit, N=83, noise off) of the cut model in
-    # bf16 (the bf16 init is the float32 draw rounded), at M = 512 rows as
-    # phase 2 cuts the LM GEMMs (whisper: 512 frames, a 64-token prompt;
-    # llava: 448 image positions of a 512-token prompt): the TAOM kernels
-    # bit-equal to their plain version.
-    cfgp = dataclasses.replace(cfg32, dtype="bfloat16")
+    # The photonic prefill of the cut in bf16 (the bf16 init is the
+    # float32 draw rounded).
     paramsp = tree_map(lambda t: t.to(torch.bfloat16), params32)
     del params32
-    rows = 64 if cfg.family == "audio" else 512
-    inputsp = request_batch(cfgp, prompts[:1, :rows].to(dev))
-    gen = torch.Generator(device=dev).manual_seed(9)
-    if cfg.family == "audio":
-        inputsp["frames"] = torch.randn(
-            (1, min(512, cfg.encoder_seq), inputsp["frames"].shape[2]),
-            generator=gen, device=dev).bfloat16()
-    if cfg.family == "vlm":
-        inputsp["patches"] = torch.randn(
-            (1, 448, cfg.vision_embed_dim), generator=gen,
-            device=dev).bfloat16()
-    pcfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
-                          noise_enabled=False)
-    phot = {}
-    for impl in ("kernel", "ref"):
-        caches = zoo.init_caches(cfgp, 1, rows, torch.bfloat16, dev)
-        zero_counts()
-        phot[impl] = zoo.prefill_fn(paramsp, inputsp, cfgp, caches,
-                                    ctx=PhotonicCtx(cfg=pcfg, impl=impl))
-        torch.cuda.synchronize()
-        expect = photonic_gemms(cfgp) if impl == "kernel" else 0
-        assert counts()[0] == expect, (impl, counts(), expect)
-    (lk, sk), (lr, sr) = phot["kernel"], phot["ref"]
-    for (key, g), (_, w) in zip(tree_leaves({"logits": lk, **sk}),
-                                tree_leaves({"logits": lr, **sr})):
-        assert torch.equal(g, w), (key, (g.float() - w.float()).abs().max())
-    log(f"[{tag}] photonic ctx (HEANA, 6-bit, N=83, noise off) prefill of "
-        f"the {cfgp.num_layers}-layer cut at M = {rows} rows: bit-equal "
-        f"between the TAOM kernels ({photonic_gemms(cfgp)} wrapper calls) "
-        f"and the plain version, logits and every state leaf")
-    del paramsp, phot
+    photonic_cut_check(tag, dataclasses.replace(cfg32, dtype="bfloat16"),
+                     paramsp, prompts, dev)
+    del paramsp
     torch.cuda.empty_cache()
-    return {"launches": launches, "serve": {
-        "prefill_ms": res.prefill_s * 1e3, "capture_ms": res.capture_s * 1e3,
-        "decode_step_ms": res.decode_s * 1e3 / (LM_GEN - 1),
-        "tokens_per_s": res.tokens_per_s,
-        "eager_step_ms": eager_s * 1e3 / (LM_GEN - 1)},
-        "init_s": init_s, "prefill_host": prefill_host, "profile": split,
-        "step": step,
-        "graphed": graphed, "f32_err": f32_err}
+    row["f32_err"] = f32_err
+    return row
+
+
+def moe_phase(dev) -> dict:
+    """Phase 11: deepseek-v2-236b at its full width, cut in depth to 1
+    dense + 2 MoE layers, served (``served_phase``); then a float32 cut
+    (1 dense + 1 MoE layer: the served params' first layers in float32)
+    held sublayer by sublayer, kernel route against plain route, each fed
+    the plain route's input, with the routing compared token by token;
+    then a photonic prefill of that cut in bf16 against the TAOM plain
+    version."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cfg_with_repeats
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import tree_map
+
+    cfg = cfg_with_repeats(get_config(MOE_ARCH), MOE_REPEATS)
+    row, params, prompts = served_phase(dev, "moe", MOE_ARCH, cfg,
+                                        MOE_BATCH, MOE_PROMPT, MOE_REPEATS)
+
+    # float32 cut: the bf16 params' values held in float32 (no third draw).
+    cfg32 = cut_config(dataclasses.replace(cfg, dtype="float32"))
+    params32 = {key: tree_map(lambda t: (t[:1] if key == "moe_body" else t)
+                              .float(), sub) for key, sub in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    routes = []
+    real_route = moe.route
+
+    def recording_route(router_w, xf, mcfg):
+        top_p, top_e = real_route(router_w, xf, mcfg)
+        routes.append((router_w, xf, top_e))
+        return top_p, top_e
+
+    moe.route = recording_route
+    b, s = prompts.shape
+    k = cfg32.moe.experts_per_token
+    x = L.embed(params32["embed"], prompts.to(dev))
+    positions = T.prompt_positions(b, s, dev)
+    caches = zoo.init_caches(cfg32, b, s, torch.float32, dev)
+    worst = {"out": 0.0, "cache": 0.0}
+    routing = {}
+    for g in T.layer_plan(cfg32):
+        for r in range(g.repeats):
+            layer_p = tree_map(lambda a: a[r], params32[g.name]["stack"])
+            layer_c = tree_map(lambda a: a[r], caches[g.name])
+            runs = {}
+            for impl in ("kernel", "ref"):
+                routes.clear()
+                zero_counts()
+                out, cache = T._run_sublayer(
+                    layer_p, x, positions, cfg32, g.kind, -1, L.EXACT_CTX,
+                    g.name, layer_c, None, attn_impl=impl, return_state=True)
+                torch.cuda.synchronize()
+                assert counts() == (0, 0, int(impl == "kernel")), counts()
+                runs[impl] = (out, cache, list(routes))
+            (yk, ck, rk), (yr, cr, rr) = runs["kernel"], runs["ref"]
+            assert bool(torch.isfinite(yk).all())
+            agree = torch.ones(b * s, dtype=torch.bool, device=dev)
+            if g.kind == "attn_moe":
+                # Top-k sets and kept experts per token; a token whose
+                # routing differs must be a near-tie of the plain run.
+                (_, _, ek), (w, xr, er) = rk[0], rr[0]
+                kept = []
+                for e in (ek, er):
+                    _, keep, _ = moe.slot_positions(e, cfg32.moe)
+                    kept.append(torch.sort(torch.where(
+                        keep.reshape(-1, k), e, -1), -1).values)
+                differ = ((torch.sort(ek, -1).values !=
+                           torch.sort(er, -1).values).any(-1) |
+                          (kept[0] != kept[1]).any(-1))
+                top = torch.topk(moe.router_probs(w, xr), k + 1, -1).values
+                near = (top[:, k - 1] - top[:, k]) < NEAR_TIE * top[:, k - 1]
+                assert not bool((differ & ~near).any()), (
+                    "routing differs away from a near-tie")
+                agree = ~differ
+                routing = {"tokens": b * s, "near_ties": int(near.sum()),
+                           "routing_differs": int(differ.sum()),
+                           "dropped_slots": int((kept[1] < 0).sum())}
+                log(f"[moe] float32 {g.name}[{r}] routing, kernel route vs "
+                    f"plain route: " + json.dumps(routing, sort_keys=True) +
+                    f" (near-tie: the plain run's k-th and (k+1)-th "
+                    f"probabilities within {NEAR_TIE:g} of the k-th)")
+            diff = (yk - yr).abs().reshape(b * s, -1).amax(-1)
+            rel = diff[agree].max().item() / yr.abs().max().item()
+            assert rel <= SSD_TOL, (g.name, r, rel)
+            worst["out"] = max(worst["out"], rel)
+            for key in ("ckv", "kr", "pos"):
+                if key == "pos":
+                    assert torch.equal(ck[key], cr[key])
+                    continue
+                crel = ((ck[key] - cr[key]).abs().max().item() /
+                        cr[key].abs().max().item())
+                assert crel <= SSD_TOL, (g.name, r, key, crel)
+                worst["cache"] = max(worst["cache"], crel)
+            x = yr
+    moe.route = real_route
+    log(f"[moe] float32 cut (1 dense + 1 MoE layer), prefill of batch {b}, "
+        f"prompt {s}, sublayer by sublayer, each fed the plain route's "
+        f"input: kernel route vs plain route max |diff| / max |plain| = "
+        f"{worst['out']:.3e} over the tokens whose routing agrees, "
+        f"{worst['cache']:.3e} over ckv and kr, pos equal (tolerance "
+        f"{SSD_TOL})")
+
+    # The photonic prefill of the cut in bf16 (the served params' values),
+    # attention on the reference's dense route on both sides.
+    paramsp = tree_map(lambda t: t.to(torch.bfloat16), params32)
+    del params32, runs, caches
+    photonic_cut_check("moe", dataclasses.replace(cfg32, dtype="bfloat16"),
+                     paramsp, prompts, dev, attn_impl="dense")
+    del paramsp
+    torch.cuda.empty_cache()
+    row.update(f32_err=worst["out"], f32_cache_err=worst["cache"],
+               routing=routing)
+    return row
 
 
 def main() -> int:
@@ -1690,7 +1888,10 @@ def main() -> int:
     families = {arch: family_phase(dev, tag, arch, b, p)
                 for tag, arch, b, p in FAMILIES}
 
-    # -- 11. report -----------------------------------------------------------
+    # -- 11. the moe family: deepseek-v2-236b at full width, cut in depth -----
+    families[MOE_ARCH] = moe_phase(dev)
+
+    # -- 12. report -----------------------------------------------------------
     # Each kernel's launches on the served paths, each path driven with the
     # counts set to 0 just before it and read just after.
     by_path = {"resnet_mini": (launches, 0, 0),
@@ -1803,11 +2004,16 @@ def main() -> int:
         "per": f"one launch at BH={bh} ({LM_BATCH} x 16 padded heads), "
                f"S={s}, D={d}, causal, {dtype} (one {QWEN_ARCH} layer's "
                f"prefill at batch {LM_BATCH}, prompt {LM_PROMPT})",
-        # The served shapes of zamba2-7b, llava-next-mistral-7b and
-        # whisper-tiny's encoder and decoder prompt, per launch in bf16.
+        # The served shapes of zamba2-7b, llava-next-mistral-7b,
+        # whisper-tiny's encoder and decoder prompt and deepseek-v2-236b's
+        # MLA (D 192, the function's V width dv 128), per launch in bf16;
+        # mla_path_ms is the profiler's flash time in one served deepseek
+        # prefill divided by its launches.
         "families": [{key: r[key] for key in (
-            "bh", "s", "d", "causal", "ms", "plain_ms", "library_ms",
+            "bh", "s", "d", "dv", "causal", "ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")} for r in flash["families"]],
+        "mla_path_ms": (families[MOE_ARCH]["profile"]["kernel_ms_per_run"] /
+                        families[MOE_ARCH]["launches"][2]),
     }
     print(json.dumps({"kernels": [entry, ssd_entry, flash_entry]}))
     print(card_line())

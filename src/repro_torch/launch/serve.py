@@ -20,12 +20,19 @@ Requests carry the modality stubs the reference feeds: zero ``frames``
 num_image_tokens, vision_embed_dim) for the vlm family (llava), whose
 prompt must be at least ``num_image_tokens`` long (``request_batch``).
 Audio's decode step reads the encoder output, which the graph holds as
-static state beside the caches.  Only the moe family still raises
-``NotImplementedError`` (ROADMAP A7c).
+static state beside the caches.  The moe family (deepseek v2/v3) routes
+its tokens on the device, with no host synchronisation, so its decode
+step captures like the others.
+
+``repeats`` cuts a model in depth at its full width (``cfg_with_repeats``:
+group name -> repeats, as ``benchmarks/roofline.py`` cuts its probes):
+deepseek-v2-236b fits one 80 GB card as 1 dense + 2 MoE layers,
+``{"dense_head": 1, "moe_body": 2}``.
 
 Which kernels the prefill drives: for the ssm family (mamba2) the SSD scan
 through ``ssm_impl``, for the dense and vlm families (qwen2, h2o-danube3,
-gemma3, llava) each attention layer's self-attention over the prompt
+gemma3, llava) and the moe family (deepseek: MLA, one head of D = nope +
+rope) each attention layer's self-attention over the prompt
 through ``attn_impl`` — the flash kernel (``kernels/flash_attention.py``),
 for the hybrid (zamba2) both (the shared attention block once a
 superblock), for audio (whisper) the flash kernel over the frames in each
@@ -47,21 +54,51 @@ the prefill; the reference counts ``gen``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --smoke --batch 4 --prompt-len 32 --gen 16 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-236b --repeats dense_head=1,moe_body=2
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core import cuda_graph
 from repro_torch.core.photonic_gemm import fold_seed
 from repro_torch.core.types import resolve_device
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.transformer import tree_map
+from repro_torch.models.transformer import layer_plan, tree_map
+
+
+def cfg_with_repeats(cfg: ArchConfig, reps: Dict[str, int]) -> ArchConfig:
+    """``cfg`` cut in depth: each layer-plan group (``enc`` / ``dec`` for
+    audio) given its number of repeats; every width kept (a copy of
+    ``benchmarks/roofline.py``'s)."""
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, encoder_layers=reps["enc"],
+                                   num_layers=reps["dec"])
+    groups = {g.name for g in layer_plan(cfg)}
+    if not set(reps) <= groups:
+        raise ValueError(f"{cfg.name}: repeats name groups "
+                         f"{sorted(reps)}; its groups are {sorted(groups)}")
+    if cfg.family == "hybrid":
+        p = cfg.shared_attn_period
+        n = p * reps.get("hybrid", 0) + reps.get("tail", 0)
+        return dataclasses.replace(cfg, num_layers=n)
+    if cfg.local_global_period:
+        return dataclasses.replace(
+            cfg, num_layers=cfg.local_global_period * reps["localglobal"])
+    if cfg.moe is not None:
+        fd = reps.get("dense_head", 0)
+        return dataclasses.replace(
+            cfg, num_layers=fd + reps["moe_body"],
+            moe=dataclasses.replace(cfg.moe, first_dense_layers=fd))
+    (only_group,) = reps.values()
+    return dataclasses.replace(cfg, num_layers=only_group)
 
 
 def request_batch(cfg, prompts: torch.Tensor) -> dict:
@@ -135,11 +172,14 @@ def serve(arch: str, smoke: bool = True, batch: int = 4,
           prompt_len: int = 32, gen: int = 16, seed: int = 0,
           greedy: bool = True, temperature: float = 1.0,
           ssm_impl: str = "auto", attn_impl: str = "auto",
-          device=None) -> ServeResult:
+          device=None,
+          repeats: Optional[Dict[str, int]] = None) -> ServeResult:
     if gen < 1 or prompt_len < 1 or batch < 1:
         raise ValueError("batch, prompt_len and gen must be >= 1")
     device = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
+    if repeats is not None:
+        cfg = cfg_with_repeats(cfg, repeats)
     params = zoo.init_params(cfg, seed, device)
     max_len = prompt_len + gen
     caches = zoo.init_caches(cfg, batch, max_len, getattr(torch, cfg.dtype),
@@ -203,10 +243,16 @@ def main() -> None:
     ap.add_argument("--attn-impl", default="auto",
                     choices=("auto", "kernel", "ref", "dense"))
     ap.add_argument("--device", default=None)
+    ap.add_argument("--repeats", default=None,
+                    help="cut in depth: group=N,... (e.g. "
+                         "dense_head=1,moe_body=2)")
     args = ap.parse_args()
+    repeats = None if args.repeats is None else {
+        k: int(v) for k, v in (kv.split("=")
+                               for kv in args.repeats.split(","))}
     r = serve(args.arch, args.smoke, args.batch, args.prompt_len, args.gen,
               ssm_impl=args.ssm_impl, attn_impl=args.attn_impl,
-              device=args.device)
+              device=args.device, repeats=repeats)
     print(f"prefill {r.prefill_s*1e3:.1f} ms, decode {r.decode_s*1e3:.1f} ms"
           f" ({r.tokens_per_s:.1f} tok/s), decode-step capture "
           f"{r.capture_s*1e3:.1f} ms, output shape {tuple(r.tokens.shape)}")

@@ -1,18 +1,21 @@
 """Attention: GQA with bias / sliding window / local-global (counterpart of
 ``repro.models.attention``).
 
-Covers the dense family's attention: qwen2 (GQA with QKV bias, tiny
+Covers every attention variant of the zoo: qwen2 (GQA with QKV bias, tiny
 kv_heads, ``head_pad``), h2o-danube3 (sliding window), gemma3 (5:1
-local:global), plus plain GQA (zamba2's shared block, llava's backbone)
-and whisper's non-causal encoder self-attention without RoPE and its
-cross-attention (``kv_source``).  Not
-ported yet: MLA (deepseek, ROADMAP A7c) raises ``NotImplementedError``; the
-reference's ``flash_decode_gqa`` and ``decode_axes`` (a ``shard_map``
-flash-decode over a device mesh, ROADMAP A9) are left out — the port runs
-on one device, where the reference itself takes the grouped einsum.
+local:global), plain GQA (zamba2's shared block, llava's backbone),
+whisper's non-causal encoder self-attention without RoPE and its
+cross-attention (``kv_source``), and DeepSeek v2/v3's MLA: a low-rank
+compressed KV cache, per-head K and V materialised over the prompt, and
+a decode step that scores against the compressed cache with the
+absorbed weights.  The reference's ``flash_decode_gqa`` and
+``decode_axes`` (a ``shard_map`` flash-decode over a device mesh,
+ROADMAP A9) are left out — the port runs on one device, where the
+reference itself takes the grouped einsum.
 
 KV caches are explicit dicts:
-  {"k": (B, S, KVH, HD), "v": ..., "pos": (B, S) int32}
+  GQA:  {"k": (B, S, KVH, HD), "v": ..., "pos": (B, S) int32}
+  MLA:  {"ckv": (B, S, R), "kr": (B, S, RD), "pos": (B, S) int32}
 Sliding-window layers allocate min(window, S) slots and write at
 ``index % slots`` (rolling); ``pos`` (-1 = empty) makes masking exact even
 mid-warmup.  The prefill returns new cache tensors, as the reference's
@@ -35,7 +38,11 @@ cache (every decoder's, whisper's included), which computes the same function:
 the prompt's own K and V under ``_mask_bias(positions, positions, window,
 causal)``.  Like the Pallas branch it masks by index, so the prompt's
 positions must run 0..S-1 (as every prefill's do).  Decode (S == 1)
-always takes the grouped einsum, as in the reference.
+always takes the grouped einsum, as in the reference.  MLA's prompt takes
+the same routes: 'dense' is the reference's, the flash route runs Q =
+[q_nope, q_rope] against K = [k_nope, k_rope] (one head of D = nope +
+rope, so the kernel's D^-0.5 is MLA's scale) with V zero-padded to D
+(``_mla_flash``).
 """
 from __future__ import annotations
 
@@ -74,15 +81,36 @@ class AttnSpec:
         return -(-self.num_heads // self.head_pad) * self.head_pad
 
 
-def _no_mla(spec: AttnSpec) -> None:
-    if spec.mla is not None:
-        raise NotImplementedError("MLA attention (deepseek) is not ported "
-                                  "yet (ROADMAP A7c)")
-
-
 def make_attention(maker: L.ParamMaker, name: str, spec: AttnSpec) -> dict:
-    _no_mla(spec)
-    d, kvh, hd = spec.d_model, spec.num_kv_heads, spec.head_dim
+    d, h, kvh, hd = (spec.d_model, spec.num_heads, spec.num_kv_heads,
+                     spec.head_dim)
+    if spec.mla is not None:
+        m = spec.mla
+        p = {
+            "wq": L.make_dense(maker, f"{name}.wq", d,
+                               h * (m.qk_nope_dim + m.qk_rope_dim),
+                               (L.EMBED, L.HEADS)),
+            "wkv_a": L.make_dense(maker, f"{name}.wkv_a", d,
+                                  m.kv_lora_rank + m.qk_rope_dim,
+                                  (L.EMBED, None)),
+            "wk_b": L.make_dense(maker, f"{name}.wk_b", m.kv_lora_rank,
+                                 h * m.qk_nope_dim, (None, L.HEADS)),
+            "wv_b": L.make_dense(maker, f"{name}.wv_b", m.kv_lora_rank,
+                                 h * m.v_head_dim, (None, L.HEADS)),
+            "wo": L.make_dense(maker, f"{name}.wo", h * m.v_head_dim, d,
+                               (L.HEADS, L.EMBED)),
+            "kv_norm": L.make_rms_norm(maker, f"{name}.kv_norm",
+                                       m.kv_lora_rank),
+        }
+        if m.q_lora_rank:
+            p["wq_a"] = L.make_dense(maker, f"{name}.wq_a", d, m.q_lora_rank,
+                                     (L.EMBED, None))
+            p["wq"] = L.make_dense(maker, f"{name}.wq", m.q_lora_rank,
+                                   h * (m.qk_nope_dim + m.qk_rope_dim),
+                                   (None, L.HEADS))
+            p["q_norm"] = L.make_rms_norm(maker, f"{name}.q_norm",
+                                          m.q_lora_rank)
+        return p
     hp = spec.padded_heads   # weight-level head padding, as the reference
     return {
         "wq": L.make_dense(maker, f"{name}.wq", d, hp * hd,
@@ -101,15 +129,21 @@ def init_cache(spec: AttnSpec, batch: int, max_len: int,
     """An empty KV cache of ``dtype`` on ``device`` (the CUDA card unless
     named): ``max_len`` slots, or the window's; ``pos`` -1 marks a slot
     empty."""
-    _no_mla(spec)
     device = resolve_device(device)
     slots = min(spec.window, max_len) if spec.window else max_len
+    pos = torch.full((batch, slots), -1, dtype=torch.int32, device=device)
+    if spec.mla is not None:
+        m = spec.mla
+        return {"ckv": torch.zeros((batch, slots, m.kv_lora_rank),
+                                   dtype=dtype, device=device),
+                "kr": torch.zeros((batch, slots, m.qk_rope_dim), dtype=dtype,
+                                  device=device),
+                "pos": pos}
     shape = (batch, slots, spec.num_kv_heads, spec.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.full((batch, slots), -1, dtype=torch.int32,
-                          device=device),
+        "pos": pos,
     }
 
 
@@ -219,10 +253,12 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                                  the module docstring).
     Returns (out, updated_cache_or_None).
     """
-    _no_mla(spec)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                          f"{attn_impl!r}")
+    if spec.mla is not None:
+        return _mla_attention(params, x, positions, spec, ctx, name, cache,
+                              cache_index, attn_impl)
     b, s, _ = x.shape
     h, kvh, hd = spec.padded_heads, spec.num_kv_heads, spec.head_dim
     q = L.dense(params["wq"], x, ctx, f"{name}.wq").reshape(b, s, h, hd)
@@ -279,5 +315,125 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         out = _gqa_scores_softmax_out(q, k, v, _mask_bias(*mask),
                                       spec.num_heads)
     out = L.dense(params["wo"], out.reshape(b, s, h * hd), ctx,
+                  f"{name}.wo")
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek v2/v3)
+# ---------------------------------------------------------------------------
+def _mla_qkr(params, x, positions, spec, ctx, name):
+    b, s, _ = x.shape
+    m, h = spec.mla, spec.num_heads
+    if "wq_a" in params:
+        qa = L.dense(params["wq_a"], x, ctx, f"{name}.wq_a")
+        qa = L.rms_norm(params["q_norm"], qa)
+        q = L.dense(params["wq"], qa, ctx, f"{name}.wq")
+    else:
+        q = L.dense(params["wq"], x, ctx, f"{name}.wq")
+    q = q.reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = L.apply_rope(q_rope, positions, spec.rope_theta)
+    kv_a = L.dense(params["wkv_a"], x, ctx, f"{name}.wkv_a")
+    ckv, k_rope = torch.split(kv_a, [m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    ckv = L.rms_norm(params["kv_norm"], ckv)
+    k_rope = L.apply_rope(k_rope[:, :, None, :], positions,
+                          spec.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_flash(q_nope, q_rope, k_nope, k_rope, v, spec: AttnSpec,
+               impl: str):
+    """MLA self-attention over the prompt through the flash kernel (or
+    its plain version): Q = [q_nope, q_rope] and K = [k_nope, k_rope
+    broadcast over the heads] make one head of D = nope + rope, whose
+    kernel scale D^-0.5 is MLA's; V is zero-padded from v_head_dim to D
+    and the output sliced back."""
+    b, s, h, _ = q_nope.shape
+    vd = v.shape[-1]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    d = q.shape[-1]
+    if vd > d:
+        raise ValueError(f"the flash route takes v_head_dim <= "
+                         f"qk_nope_dim + qk_rope_dim, got {vd} > {d}")
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, -1)],
+                  dim=-1)
+    v = torch.nn.functional.pad(v, (0, d - vd))
+
+    def fold(t):
+        return t.transpose(1, 2).reshape(b * h, s, d)
+
+    o = kops.flash_attention(fold(q), fold(k), fold(v), causal=spec.causal,
+                             window=spec.window, impl=impl)
+    return o.reshape(b, h, s, d)[..., :vd].transpose(1, 2)
+
+
+def _mla_attention(params, x, positions, spec, ctx, name, cache,
+                   cache_index, attn_impl):
+    """MLA.  The prompt (prefill, or no cache) materialises per-head K and
+    V through ``wk_b`` / ``wv_b`` (photonic under a ctx) and attends on
+    the dense route or the flash route (``attn_impl``, as for GQA); a
+    decode step writes the compressed cache ``ckv`` / ``kr`` / ``pos`` at
+    ``index % slots`` in place and scores against ``ckv`` directly with
+    the absorbed weights (``wk_b`` and ``wv_b`` as raw products, exact
+    under a ctx, as in the reference)."""
+    b, s, _ = x.shape
+    m, h = spec.mla, spec.num_heads
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    q_nope, q_rope, ckv, k_rope = _mla_qkr(params, x, positions, spec, ctx,
+                                           name)
+    new_cache = None
+    kv_ckv, kv_kr, kpos = ckv, k_rope, positions
+    if cache is not None and cache_index is None:      # prefill into cache
+        new_cache = {key: cache[key].clone() for key in ("ckv", "kr", "pos")}
+        new_cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+        new_cache["kr"][:, :s] = k_rope.to(cache["kr"].dtype)
+        new_cache["pos"][:, :s] = positions.to(torch.int32)
+    elif cache is not None:                            # absorbed decode
+        if s != 1:
+            raise ValueError(f"decode takes one token, got S={s}")
+        if not isinstance(cache_index, torch.Tensor):
+            cache_index = torch.full((), int(cache_index),
+                                     dtype=torch.int64, device=x.device)
+        slot = cache_index.reshape(1).long() % cache["ckv"].shape[1]
+        cache["ckv"].index_copy_(1, slot, ckv.to(cache["ckv"].dtype))
+        cache["kr"].index_copy_(1, slot, k_rope.to(cache["kr"].dtype))
+        cache["pos"].index_copy_(1, slot, positions.to(torch.int32))
+        new_cache = cache
+        kv_ckv, kv_kr, kpos = cache["ckv"], cache["kr"], cache["pos"]
+
+    if cache_index is not None:
+        # Absorbed-weight decode: score against c_kv directly.  q_abs is
+        # rounded to the activations' dtype, the probabilities to the
+        # cache's.
+        wk_b = params["wk_b"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+        q_abs = _f32_einsum("bqhd,rhd->bqhr", q_nope, wk_b).to(
+            torch.result_type(q_nope, wk_b))
+        scores = (_f32_einsum("bqhr,bsr->bhqs", q_abs, kv_ckv) +
+                  _f32_einsum("bqhd,bsd->bhqs", q_rope, kv_kr))
+        bias = _mask_bias(positions, kpos, spec.window, spec.causal)
+        probs = torch.softmax(scores * scale + bias[:, None], dim=-1)
+        ctx_r = _f32_einsum("bhqs,bsr->bqhr", probs.to(kv_ckv.dtype),
+                            kv_ckv).to(kv_ckv.dtype)
+        wv_b = params["wv_b"]["w"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+        out = _f32_einsum("bqhr,rhv->bqhv", ctx_r, wv_b).to(
+            torch.result_type(ctx_r, wv_b))
+    else:
+        # The prompt: materialise per-head K and V.
+        k_nope = L.dense(params["wk_b"], kv_ckv, ctx, f"{name}.wk_b") \
+            .reshape(b, s, h, m.qk_nope_dim)
+        v = L.dense(params["wv_b"], kv_ckv, ctx, f"{name}.wv_b") \
+            .reshape(b, s, h, m.v_head_dim)
+        if attn_impl != "dense" and s > 1:
+            out = _mla_flash(q_nope, q_rope, k_nope, kv_kr, v, spec,
+                             attn_impl)
+        else:
+            scores = (_f32_einsum("bqhd,bshd->bhqs", q_nope, k_nope) +
+                      _f32_einsum("bqhd,bsd->bhqs", q_rope, kv_kr))
+            bias = _mask_bias(positions, kpos, spec.window, spec.causal)
+            probs = torch.softmax(scores * scale + bias[:, None], dim=-1)
+            out = _f32_einsum("bhqs,bshv->bqhv", probs.to(v.dtype),
+                              v).to(v.dtype)
+    out = L.dense(params["wo"], out.reshape(b, s, h * m.v_head_dim), ctx,
                   f"{name}.wo")
     return out, new_cache

@@ -5,7 +5,9 @@ Parameters are plain nested dicts of tensors.  ``ParamMaker`` draws each
 one from its own ``torch.Generator``, seeded with ``fold_seed(seed,
 crc32(name))`` in place of the reference's ``jax.random.fold_in``, so a
 parameter's values depend only on the seed and its name — not on the
-order of construction or on the device.  Draws are made on the CPU and
+order of construction or on the device.  A parameter with a leading
+expert axis (``EXPERT``) draws expert ``e`` from ``fold_seed`` of that
+seed and ``e``, the experts on threads.  Draws are made on the CPU and
 moved to ``device``.  On the ``meta`` device nothing is drawn: the tree
 holds its shapes and dtypes only (the reference's abstract mode; its spec
 mode is left out, nothing in the port lowers a model abstractly).
@@ -17,7 +19,9 @@ HEANA / AMW / MAW numerics (``kernels.ops.photonic_matmul``).
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -33,6 +37,7 @@ HEADS = "heads"
 KV_HEADS = "kv_heads"
 VOCAB = "vocab"
 SSM_INNER = "ssm_inner"
+EXPERT = "expert"
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -82,9 +87,27 @@ class ParamMaker:
         if init == "embed":
             fan_in = 1.0
         s = scale if scale is not None else fan_in ** -0.5
-        gen = torch.Generator().manual_seed(name_seed(self.seed, name))
-        w = torch.randn(shape, generator=gen, dtype=torch.float32) * s
-        return w.to(self.dtype).to(self.device)
+        seed = name_seed(self.seed, name)
+        if axes[0] != EXPERT:
+            return _draw(seed, shape, s, self.dtype).to(self.device)
+        # One stream an expert, the experts on threads (a deepseek-v2 MoE
+        # layer holds 3.8 G routed-expert weights).
+        w = torch.empty(shape, dtype=self.dtype)
+
+        def expert(e: int) -> None:
+            w[e] = _draw(fold_seed(seed, e), shape[1:], s, self.dtype)
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            list(pool.map(expert, range(shape[0])))
+        return w.to(self.device)
+
+
+def _draw(seed: int, shape: Tuple[int, ...], scale: float,
+          dtype: torch.dtype) -> torch.Tensor:
+    """N(0, scale^2) from stream ``seed``, drawn in float32 on the CPU,
+    then rounded to ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32)
+            * scale).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)

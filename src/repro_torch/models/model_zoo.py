@@ -12,17 +12,18 @@ else -> ``transformer``.
 ``init_params`` and ``init_caches`` run on the CUDA card unless the caller
 names another device (``device="cpu"`` runs the plain PyTorch versions);
 ``prefill_fn`` and ``decode_fn`` run where their params are.  The port runs
-the ssm (mamba2), dense (qwen2, h2o-danube3, gemma3), hybrid (zamba2), vlm
-(llava) and audio (whisper) families; ``moe`` raises
-``NotImplementedError`` at entry naming its ROADMAP item.  ``loss_fn``
-waits for the training slice.  Batches are dicts: {"tokens"} (+ "frames"
+every family of the zoo: ssm (mamba2), dense (qwen2, h2o-danube3,
+gemma3), hybrid (zamba2), vlm (llava), moe (deepseek v2/v3: MoE + MLA;
+v3's MTP params) and audio (whisper).  ``loss_fn`` waits for the
+training slice.  Batches are dicts: {"tokens"} (+ "frames"
 (B, encoder_seq, WHISPER_FRAME_FEAT) for audio, "patches" (B,
 num_image_tokens, vision_embed_dim) for vlm) — the modality frontends are
 stubs, as in the reference, so frames and patches arrive as precomputed
 features.  The serving state is {"layers": caches} (+ "enc_out", the
 encoder's output, for audio).  ``params_from_jax`` carries any reference
 tree across leaf by leaf: attention's QKV biases and its
-``head_pad``-padded ``wq`` / ``wo`` as they are.
+``head_pad``-padded ``wq`` / ``wo``, the (E, D, F) expert tensors and
+v3's ``mtp`` subtree as they are.
 """
 from __future__ import annotations
 

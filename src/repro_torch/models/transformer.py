@@ -9,12 +9,14 @@ port runs the stack as a Python loop (serving only: no remat, no
 Families run: ``ssm`` (mamba2), ``dense`` (qwen2, h2o-danube3 with its
 sliding window, gemma3's local:global superblocks), ``hybrid`` (zamba2:
 mamba superblocks with ONE shared attention block applied after each —
-shared params, a KV cache per superblock) and ``vlm`` (llava: the dense
+shared params, a KV cache per superblock), ``vlm`` (llava: the dense
 backbone plus a projector whose output overwrites the embeddings of the
-first ``num_image_tokens`` positions).  ``moe`` (MoE + MLA + MTP) raises
-``NotImplementedError`` naming its ROADMAP item; the encoder-decoder
-(``audio``) is ``models/encdec.py``.  The reference's ``dist`` context is
-dropped: the port runs on one device.
+first ``num_image_tokens`` positions) and ``moe`` (deepseek v2/v3: MLA
+attention, a dense head of ``first_dense_layers`` and ``attn_moe``
+layers whose FFN is ``models/moe.py``; v3's multi-token-prediction
+params and ``mtp_hidden``, which only training reads).  The
+encoder-decoder (``audio``) is ``models/encdec.py``.  The reference's
+``dist`` context is dropped: the port runs on one device.
 
 Serving: ``init_caches`` -> ``prefill`` -> ``decode_step`` with explicit
 cache trees throughout.  The prefill returns new caches; a decode step
@@ -38,20 +40,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
-# What each family still needs, by ROADMAP item.
-_UNPORTED = {"moe": "MoE, MLA and MTP (ROADMAP A7c)"}
-_PORTED = ("ssm", "dense", "hybrid", "vlm")
+_PORTED = ("ssm", "dense", "hybrid", "vlm", "moe")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot run."""
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs "
-            f"{_UNPORTED[cfg.family]}, not ported yet; the port runs the "
-            f"ssm, dense, hybrid, vlm and audio families")
+    """Raise ``NotImplementedError`` for a family this module does not
+    run."""
     if cfg.family not in _PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the decoder-only transformer does not run the "
@@ -138,13 +135,17 @@ def _make_sublayer(maker: L.ParamMaker, name: str, cfg: ArchConfig,
         return {"mamba": S.make_mamba(maker, f"{name}.mamba", cfg.d_model,
                                       cfg.ssm),
                 "ln": L.make_rms_norm(maker, f"{name}.ln", cfg.d_model)}
-    return {   # 'attn_dense'
+    p = {
         "ln1": L.make_rms_norm(maker, f"{name}.ln1", cfg.d_model),
         "attn": A.make_attention(maker, f"{name}.attn",
                                  attn_spec(cfg, window)),
         "ln2": L.make_rms_norm(maker, f"{name}.ln2", cfg.d_model),
-        "ffn": L.make_mlp(maker, f"{name}.ffn", cfg.d_model, cfg.d_ff),
     }
+    if kind == "attn_moe":
+        p["ffn"] = M.make_moe(maker, f"{name}.ffn", cfg.d_model, cfg.moe)
+    else:
+        p["ffn"] = L.make_mlp(maker, f"{name}.ffn", cfg.d_model, cfg.d_ff)
+    return p
 
 
 def make_stacked(maker: L.ParamMaker, name: str, n: int, build_fn) -> dict:
@@ -198,9 +199,41 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
         p["projector"] = L.make_dense(maker, "projector",
                                       cfg.vision_embed_dim, cfg.d_model,
                                       (None, L.EMBED))
+    if cfg.mtp_depth > 0:
+        # DeepSeek-V3 multi-token prediction: a combiner + one extra block
+        # per depth, sharing the embedding/head (arXiv:2412.19437 §2.2).
+        p["mtp"] = {
+            "ln_h": L.make_rms_norm(maker, "mtp.ln_h", cfg.d_model),
+            "ln_e": L.make_rms_norm(maker, "mtp.ln_e", cfg.d_model),
+            "proj": L.make_dense(maker, "mtp.proj", 2 * cfg.d_model,
+                                 cfg.d_model, (None, L.EMBED)),
+            "block": _make_sublayer(maker, "mtp.block", cfg, "attn_dense",
+                                    -1),
+            "final_ln": L.make_rms_norm(maker, "mtp.final_ln", cfg.d_model),
+        }
     for g in layer_plan(cfg):
         p[g.name] = _make_group(maker, cfg, g)
     return p
+
+
+def mtp_hidden(params: dict, hidden: torch.Tensor, tokens: torch.Tensor,
+               cfg: ArchConfig, ctx: L.PhotonicCtx = L.EXACT_CTX,
+               attn_impl: str = "auto") -> torch.Tensor:
+    """Depth-1 MTP trunk: hidden states for predicting token t+2.
+
+    hidden: (B, S, D) main-trunk final hidden; tokens: (B, S).  Returns
+    (B, S-1, D) — position t predicts tokens[t+2] (the caller aligns the
+    targets; ``loss_fn``, which reads it, waits for training).
+    """
+    mp = params["mtp"]
+    b, s = tokens.shape
+    h = L.rms_norm(mp["ln_h"], hidden[:, :-1])
+    e = L.rms_norm(mp["ln_e"], L.embed(params["embed"], tokens[:, 1:]))
+    x = L.dense(mp["proj"], torch.cat([h, e], dim=-1), ctx, "mtp.proj")
+    positions = prompt_positions(b, s - 1, tokens.device)
+    x, _ = _run_sublayer(mp["block"], x, positions, cfg, "attn_dense", 0,
+                         ctx, "mtp.block", attn_impl=attn_impl)
+    return L.rms_norm(mp["final_ln"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +258,11 @@ def _run_sublayer(p, x, positions, cfg, kind, window, ctx, name, cache=None,
                                spec, ctx, f"{name}.attn", cache, cache_index,
                                attn_impl=attn_impl)
     x = x + h
-    ff = L.mlp(p["ffn"], L.rms_norm(p["ln2"], x), ctx, f"{name}.ffn")
+    h2 = L.rms_norm(p["ln2"], x)
+    if kind == "attn_moe":
+        ff = M.moe_ffn(p["ffn"], h2, cfg.moe, ctx, f"{name}.ffn")
+    else:
+        ff = L.mlp(p["ffn"], h2, ctx, f"{name}.ffn")
     return x + ff, new_cache
 
 

@@ -317,10 +317,22 @@ def test_attention_refuses_what_it_does_not_run():
         tattn.attention(p, x, pos, spec,
                         cache=tattn.init_cache(spec, 1, 4, device="cpu"),
                         cache_index=3)
-    mla = dataclasses.replace(spec, mla=tconfigs.get_config(
-        "deepseek-v2-236b", smoke=True).mla)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-        tattn.make_attention(tlayers.ParamMaker(0), "a", mla)
+    # MLA: one token a decode step; the flash route needs v_head_dim <=
+    # qk_nope_dim + qk_rope_dim (V is zero-padded to that head).
+    m = tconfigs.get_config("deepseek-v2-236b", smoke=True).mla
+    mla = dataclasses.replace(spec, mla=m)
+    p = tattn.make_attention(tlayers.ParamMaker(0), "a", mla)
+    with pytest.raises(ValueError, match="one token"):
+        tattn.attention(p, x, pos, mla,
+                        cache=tattn.init_cache(mla, 1, 4, device="cpu"),
+                        cache_index=3)
+    wide = dataclasses.replace(spec, mla=dataclasses.replace(
+        m, v_head_dim=m.qk_nope_dim + m.qk_rope_dim + 8))
+    p = tattn.make_attention(tlayers.ParamMaker(0), "a", wide)
+    with pytest.raises(ValueError, match="v_head_dim <="):
+        tattn.attention(p, x, pos, wide, attn_impl="ref")
+    assert tattn.attention(p, x, pos, wide, attn_impl="dense")[0].shape == \
+        x.shape
 
 
 # ---------------------------------------------------------------------------

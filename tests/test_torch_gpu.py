@@ -13,9 +13,10 @@ max|plain| in float32 and one bf16 ulp of each query row's max|plain|
 binade in bfloat16 (its online softmax sums over 64-key tiles, the plain
 version's over 128-key blocks; the bf16 kernel's P reaches the tensor
 cores as two bf16 terms, within 2^-17 of the float32 P) — and run the
-zoo networks, a mamba2 prefill and a qwen2 prefill end to end through the
-kernels — and hold the compiled paths: the CNN forward captured in a CUDA
-graph bit-equal to the eager forward for every resnet_mini bucket (both
+zoo networks, a mamba2 prefill, a qwen2 prefill and the hybrid, VLM,
+encoder-decoder and moe prefills end to end through the kernels — and
+hold the compiled paths: the CNN forward captured in a CUDA graph
+bit-equal to the eager forward for every resnet_mini bucket (both
 policies, noise off and on from one seed), no capture after warmup, eight
 threads served bitwise, and a graphed decode step equal to the eager one.
 They import no JAX.
@@ -437,12 +438,12 @@ def test_mamba_prefill_through_the_kernel_on_card(cuda):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "llava-next-mistral-7b",
-                                  "whisper-tiny"])
+                                  "whisper-tiny", "deepseek-v2-236b"])
 def test_family_prefill_through_the_kernels_on_card(cuda, arch):
-    """The hybrid, VLM and encoder-decoder prefills (float32 smoke configs)
-    with the kernels against the plain versions: the SSD wrapper once a
-    mamba layer, the flash kernel once an attention layer (whisper's
-    encoder and decoder)."""
+    """The hybrid, VLM, encoder-decoder and moe prefills (float32 smoke
+    configs) with the kernels against the plain versions: the SSD wrapper
+    once a mamba layer, the flash kernel once an attention layer
+    (whisper's encoder and decoder; deepseek's MLA)."""
     from repro_torch.launch.serve import request_batch
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     params = zoo.init_params(cfg, 0, device=cuda)
@@ -514,7 +515,10 @@ def _flash_close(got, want):
     (128, 1000, 112, True, 0, "bfloat16"),  # zamba2-7b, batch 4 x 32
     (64, 3072, 128, True, 0, "bfloat16"),   # llava, batch 2 x 32 (GQA 4:1)
     (24, 1500, 64, False, 0, "bfloat16"),   # whisper encoder, batch 4 x 6
-    (24, 64, 64, True, 0, "bfloat16")])     # whisper decoder prompt
+    (24, 64, 64, True, 0, "bfloat16"),      # whisper decoder prompt
+    # deepseek-v2's MLA prefill: batch 4 x 128 heads of nope + rope = 192
+    (512, 1000, 192, True, 0, "bfloat16"),
+    (4, 129, 192, True, 0, "float32")])
 def test_flash_kernel_matches_plain_on_card(cuda, bh, s, d, causal, window,
                                             dtype):
     q, k, v = _flash_inputs(cuda, bh, s, d, dtype, seed=s + d)
@@ -712,8 +716,12 @@ def test_threads_serve_concurrently_bitwise_on_card(cuda):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b", "zamba2-7b",
-                                  "llava-next-mistral-7b", "whisper-tiny"])
+                                  "llava-next-mistral-7b", "whisper-tiny",
+                                  "deepseek-v2-236b"])
 def test_graphed_decode_step_equals_eager_on_card(cuda, arch):
+    """A decode step replayed from a CUDA graph equals the eager step bit
+    for bit (deepseek: MoE routing and dispatch on the device, the
+    absorbed MLA decode)."""
     from repro_torch.launch.serve import DecodeGraph, request_batch
     from repro_torch.models.transformer import tree_map
     cfg = get_config(arch, smoke=True)

@@ -59,7 +59,7 @@ def test_import_loads_no_jax_no_reference_and_builds_nothing():
     for name in ("configs", "configs.base", "configs.mamba2_130m",
                  "models.layers", "models.ssm", "models.transformer",
                  "models.model_zoo", "launch.serve", "kernels.ssd_scan",
-                 "kernels.nvcc", "models.attention",
+                 "kernels.nvcc", "models.attention", "models.moe",
                  "kernels.flash_attention"):
         assert f"repro_torch.{name}" in report["modules"], name
     assert report["foreign"] == []

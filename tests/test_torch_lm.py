@@ -348,31 +348,20 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.list_archs()
                                   if a != ARCH])
-def test_unported_families_raise(arch):
-    """The moe family, which the port does not run yet, raises at every
-    entry point, naming its ROADMAP item; the others — dense (qwen2,
-    h2o-danube3, gemma3), hybrid (zamba2), vlm (llava) and audio
-    (whisper), ported since — run through the same entry points (their
-    conformance: tests/test_torch_attention.py, tests/test_torch_families.
-    py)."""
+def test_every_family_runs_through_the_entry_points(arch):
+    """Every other arch of the zoo — dense (qwen2, h2o-danube3, gemma3),
+    hybrid (zamba2), vlm (llava), audio (whisper) and moe (deepseek v2/v3)
+    — runs through init_params, init_caches, prefill_fn, decode_fn and
+    serve (their conformance: tests/test_torch_attention.py, tests/
+    test_torch_families.py, tests/test_torch_moe.py)."""
     cfg = tconfigs.get_config(arch, smoke=True)
-    if cfg.family != "moe":
-        params = tzoo.init_params(cfg, 0, device="cpu")
-        caches = tzoo.init_caches(cfg, 1, 10, device="cpu")
-        batch = tserve.request_batch(cfg, torch.zeros(1, 8,
-                                                      dtype=torch.long))
-        logits, state = tzoo.prefill_fn(params, batch, cfg, caches)
-        logits, _ = tzoo.decode_fn(params, torch.zeros(1, 1,
-                                                       dtype=torch.long),
-                                   8, cfg, state)
-        assert logits.shape == (1, 1, cfg.vocab_size)
-        assert tserve.serve(arch, batch=1, prompt_len=8, gen=2,
-                            device="cpu").tokens.shape == (1, 10)
-        return
-    for call in (lambda: tzoo.init_params(cfg, 0, device="cpu"),
-                 lambda: tzoo.init_caches(cfg, 1, 8, device="cpu"),
-                 lambda: tzoo.prefill_fn({}, {"tokens": None}, cfg, {}),
-                 lambda: tzoo.decode_fn({}, None, 0, cfg, {}),
-                 lambda: tserve.serve(arch, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7c"):
-            call()
+    params = tzoo.init_params(cfg, 0, device="cpu")
+    caches = tzoo.init_caches(cfg, 1, 10, device="cpu")
+    batch = tserve.request_batch(cfg, torch.zeros(1, 8, dtype=torch.long))
+    logits, state = tzoo.prefill_fn(params, batch, cfg, caches)
+    logits, _ = tzoo.decode_fn(params, torch.zeros(1, 1, dtype=torch.long),
+                               8, cfg, state)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert tserve.serve(arch, batch=1, prompt_len=8, gen=2,
+                        device="cpu").tokens.shape == (1, 10)
