@@ -167,9 +167,30 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 (attention on the dense route on both sides, 9 TAOM calls
                 a layer) bit-equal between the TAOM kernels and their
                 plain version;
-  12. report  — the kernels' JSON line (each kernel's launches summed over
-                the served paths, and per path), the card's name and power
-                limit, and the result line.
+  12. train   — train through ``launch/train.train`` on the card:
+                mamba2-130m at its full width (seeded random bf16 weights,
+                20 steps of batch 8 x seq 256 on the synthetic pipeline,
+                remat on, checkpoints at steps 10 and 20): the loss falls,
+                the warm step's host time, tokens/s and peak memory, no
+                kernel of the port launched (under grad the SSD scan takes
+                its plain route); step 10's checkpoint restored into a new
+                run reproduces steps 10-19's losses and the final params
+                bit for bit; one more step profiled (device busy, idle
+                share, kernels), every param leaf's gradient finite and
+                the SSD's upstream weights' (in_proj, conv_w, a_log,
+                dt_bias) non-zero.  C1: a 2-layer float32 cut's gradients
+                through ``transformer.forward`` under the default routes
+                bit-equal to the plain routes', and ssm_impl='kernel'
+                under grad raising.  Photonic QAT (photonic_heana: 8-bit
+                HEANA, N 128), 5 steps: 480 TAOM launches (the forward's
+                48 photonic GEMMs and the remat recompute's, a step),
+                losses and final params bit-equal to impl='ref'; the TAOM
+                kernel timed at QAT's two GEMM shapes beside the bound.
+                qwen2-0.5b at its full width, 5 steps: loss, step time,
+                peak memory, one more step profiled;
+  13. report  — the kernels' JSON line (each kernel's launches summed over
+                the served and trained paths, and per path), the card's
+                name and power limit, and the result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
 imports neither JAX nor the reference package.
@@ -223,6 +244,17 @@ NEAR_TIE = 1e-5                  # phase 11's routing: a near-tie's gap
 FAMILIES = (("zamba2", "zamba2-7b", 4, 1000),
             ("llava", "llava-next-mistral-7b", 2, 3072),
             ("whisper", "whisper-tiny", 4, 64))
+# Phase 12's training runs: mamba2-130m at its full width (as the
+# reference's examples/train_lm.py trains it), batch 8 x seq 256 tokens a
+# step, bf16 as configured; photonic QAT at photonic_heana (8-bit HEANA, N
+# 128: the TAOM kernel's float32 body); qwen2-0.5b for the dense family.
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, QAT_STEPS = 8, 256, 20, 5
+DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen2-0.5b", 5
+# Weights the SSD scan's gradient has to reach (C1: a forward-only kernel
+# under grad would leave them without one).
+SSD_UPSTREAM = ("in_proj", "conv_w", "a_log", "dt_bias")
+BF16_FLOPS = 989e12              # 8-bit operands fit bf16 exactly
 FLASH_TOL = 1e-5                 # float32: rtol, and atol * max|plain|
 # Phase 6's shapes (BH, S, D, causal, window, dtype): qwen2-0.5b's served
 # prefill (batch 4 x 16 padded heads; the shape timed) in both dtypes,
@@ -1570,6 +1602,268 @@ def moe_phase(dev) -> dict:
     return row
 
 
+def qat_times(dev, cfg, gemms) -> list:
+    """The TAOM kernel at photonic QAT's shapes (bf16 activations and
+    weights, the photonic_heana config, noise off): the route a training
+    step's forward takes (PyTorch's quantize, the float32 body,
+    rescale: ``ops.photonic_matmul(impl="kernel")``), the body alone and
+    the plain route, device times (CUDA graph replay) beside the bound —
+    x, w and the output read or written once in bf16, 2 M K D operations
+    at the bf16 tensor-core rate (an 8-bit operand is exact in bf16).
+    The kernel route must equal the plain one bit for bit: each chunk's
+    psum is exact (qmax^2 N < 2^24) and both sum the chunks in order."""
+    import torch
+    from repro_torch.core.taom import quantize
+    from repro_torch.kernels import ops, taom_gemm
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for name, m, k, d in gemms:
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        w = torch.randn((k, d), generator=gen, device=dev).bfloat16()
+        fs = taom_gemm.calibrated_adc_fs(k, cfg)
+        xq, _ = quantize(x.float(), cfg.bits)
+        wq, _ = quantize(w.float(), cfg.bits, axis=0)
+        xq, wq = xq.contiguous(), wq.contiguous()
+        assert cfg.qmax ** 2 * cfg.dpe_size < EXACT_LIMIT
+        route = lambda: ops.photonic_matmul(x, w, cfg,   # noqa: E731
+                                            impl="kernel")
+        plain = lambda: ops.photonic_matmul(x, w, cfg,   # noqa: E731
+                                            impl="ref")
+        body = lambda: taom_gemm.taom_gemm_quantized(    # noqa: E731
+            xq, wq, None, cfg, fs)
+        with torch.no_grad():
+            assert torch.equal(route(), plain()), name
+            row = {"gemm": name, "m": m, "k": k, "d": d,
+                   "chunks": -(-k // cfg.dpe_size),
+                   "route_ms": device_ms(route), "body_ms": device_ms(body),
+                   "plain_ms": device_ms(plain),
+                   "matmul_ms": device_ms(lambda: torch.matmul(x, w))}
+        nbytes = 2 * (m * k + k * d + m * d)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2.0 * m * k * d / BF16_FLOPS * 1e3
+        row.update(bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        log("[train] TAOM at QAT's {gemm} M={m} K={k} D={d} C={chunks} "
+            "(8-bit HEANA, bf16 operands): route_ms={route_ms:.5f} (float32 "
+            "body alone {body_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
+            "{bound_ms:.5f} ({bound_by}) torch.matmul_ms={matmul_ms:.5f} "
+            "(device times, CUDA graph replay); kernel route == plain "
+            "route bit for bit".format(**row))
+        rows.append(row)
+    return rows
+
+
+def train_phase(dev) -> dict:
+    """Phase 12: training on the card through ``launch/train.train`` —
+    exact mamba2-130m at full width (the loss falls, step time, profile,
+    every leaf's gradient), exact resume, C1's guard (gradients through
+    the default routes equal the plain routes'), photonic QAT through the
+    TAOM kernel bit-equal to its plain route, and qwen2-0.5b."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_source
+    from repro_torch.launch import train as T
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import EXACT_CTX
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import optimizer as opt
+
+    cfg = get_config(TRAIN_ARCH)
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    kw = dict(smoke=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
+              log_every=5)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        # Exact training, 20 steps, checkpoints at steps 10 and 20.
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        full = T.train(TRAIN_ARCH, steps=TRAIN_STEPS,
+                       ckpt_dir=os.path.join(root, "a"), ckpt_every=10, **kw)
+        wall = time.perf_counter() - t0
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert launched == (0, 0, 0), launched
+        assert all(math.isfinite(x) for x in full.losses), full.losses
+        assert full.final_loss < full.first_loss, full.losses
+        warm = sorted(full.step_s[3:])
+        step_ms = warm[len(warm) // 2] * 1e3
+        out["exact"] = {"losses": full.losses, "step_ms": step_ms,
+                        "tokens_per_s": tokens_per_step / step_ms * 1e3,
+                        "loop_tokens_per_s": full.tokens_per_s,
+                        "wall_s": wall, "peak_bytes": peak,
+                        "launches": launched}
+        log(f"[train] {TRAIN_ARCH} exact, {TRAIN_STEPS} steps of "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens (bf16, remat): loss "
+            f"{full.first_loss:.4f} -> {full.final_loss:.4f}; warm step "
+            f"{step_ms:.2f} ms (median of steps 3-{TRAIN_STEPS - 1}, host "
+            f"clock, loss read back), {out['exact']['tokens_per_s']:.0f} "
+            f"tokens/s; the loop (checkpoints, data, first steps) "
+            f"{full.tokens_per_s:.0f} tokens/s; peak memory "
+            f"{peak / 2**30:.2f} GiB; {wall:.1f} s; launches (TAOM, SSD, "
+            f"flash) {launched}: the SSD scan ran its plain route")
+
+        # Exact resume: as if the run had stopped after step 10's save,
+        # that checkpoint restored into a fresh run.
+        shutil.rmtree(os.path.join(root, "a", "step_00000020"))
+        again = T.train(TRAIN_ARCH, steps=TRAIN_STEPS,
+                        ckpt_dir=os.path.join(root, "a"), ckpt_every=1000,
+                        resume=True, **kw)
+        assert again.losses == full.losses[10:], (again.losses,
+                                                  full.losses[10:])
+        for (key, a), (_, b) in zip(tree_leaves(again.params),
+                                    tree_leaves(full.params)):
+            assert torch.equal(a, b), key
+        log(f"[train] resume from step 10's checkpoint: steps 10-19's "
+            f"losses and the final params bit-equal to the uninterrupted "
+            f"run's")
+        del again
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # One more step of the full run, profiled; then its gradients.
+    source = make_source(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    batch = T.device_batch(source.batch(TRAIN_STEPS), cfg, dev)
+    adam = opt.AdamWConfig(lr=1e-3, warmup_steps=2,
+                           total_steps=TRAIN_STEPS + 8)
+    held = {"state": full.state}
+
+    def step():
+        _, held["state"], _ = T.train_step(full.params, held["state"], batch,
+                                           cfg, EXACT_CTX, adam)
+    prof = profile(step, 1, ("ssd_scan", "flash_attention", "taom_gemm"))
+    assert prof["kernel_launches_per_run"] == 0, prof
+    out["exact"]["profile"] = prof
+    log(f"[train] one exact step under the profiler: "
+        f"{prof['profiled_wall_ms_per_run']:.2f} ms host clock, "
+        f"{prof['device_busy_ms_per_run']:.2f} ms device busy, idle "
+        f"{prof['device_idle_share']:.1%}, "
+        f"{prof['device_kernels_per_run']:g} kernels, none of the port's "
+        f"own; top: " + json.dumps(prof["top_kernels_ms_per_run"][:5]))
+    upstream = {}
+    for key, p in tree_leaves(full.params):
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), key
+        for name in SSD_UPSTREAM:
+            if name in key:
+                upstream[name] = upstream.get(name, 0.0) + \
+                    p.grad.float().abs().max().item()
+    assert sorted(upstream) == sorted(SSD_UPSTREAM), upstream
+    assert all(v > 0 for v in upstream.values()), upstream
+    log(f"[train] every one of {len(list(tree_leaves(full.params)))} "
+        f"param leaves has a finite gradient; the SSD's upstream weights' "
+        f"max |grad|: " + json.dumps(upstream, sort_keys=True))
+    del full, held
+
+    # C1 on the card: a 2-layer float32 cut, gradients through forward
+    # under the default 'auto' routes against the plain routes.
+    cut = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    toks = batch["tokens"]
+    grads = {}
+    for impl in ("auto", "ref"):
+        params = tree_map(lambda p: p.requires_grad_(),
+                          zoo.init_params(cut, 0, dev))
+        zero_counts()
+        transformer.forward(params, toks, cut, ssm_impl=impl) \
+            .float().square().mean().backward()
+        assert counts() == (0, 0, 0), (impl, counts())
+        grads[impl] = {k: p.grad for k, p in tree_leaves(params)}
+    assert all(torch.equal(g, grads["ref"][k])
+               for k, g in grads["auto"].items())
+    try:
+        transformer.forward(params, toks, cut, ssm_impl="kernel")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("impl='kernel' under grad did not raise")
+    log(f"[train] C1: a 2-layer float32 cut's gradients through forward "
+        f"under 'auto' bit-equal to 'ref' ({len(grads['auto'])} leaves, no "
+        f"kernel launched); ssm_impl='kernel' under grad raises: {refused}")
+    del grads, params
+
+    # Photonic QAT: 5 steps through the TAOM kernel, then through its plain
+    # route.  A step runs every photonic GEMM (in_proj and out_proj a
+    # layer) in the forward and again in the remat recompute.
+    expected = QAT_STEPS * 2 * 2 * cfg.num_layers
+    qat = {}
+    for impl in ("auto", "ref"):
+        zero_counts()
+        qat[impl] = T.train(TRAIN_ARCH, steps=QAT_STEPS,
+                            numerics="photonic_heana", impl=impl, **kw)
+        qat[impl + "_launches"] = counts()
+    assert qat["auto_launches"] == (expected, 0, 0), qat["auto_launches"]
+    assert qat["ref_launches"] == (0, 0, 0), qat["ref_launches"]
+    assert qat["auto"].losses == qat["ref"].losses, (qat["auto"].losses,
+                                                     qat["ref"].losses)
+    for (key, a), (_, b) in zip(tree_leaves(qat["auto"].params),
+                                tree_leaves(qat["ref"].params)):
+        assert torch.equal(a, b), key
+    assert all(math.isfinite(x) for x in qat["auto"].losses)
+    q_ms = {impl: sorted(qat[impl].step_s[1:])[(QAT_STEPS - 1) // 2] * 1e3
+            for impl in ("auto", "ref")}
+    out["qat"] = {"losses": qat["auto"].losses, "launches": expected,
+                  "step_ms": q_ms["auto"], "plain_step_ms": q_ms["ref"]}
+    log(f"[train] photonic QAT (photonic_heana) {QAT_STEPS} steps: "
+        f"{expected} TAOM launches = {QAT_STEPS} steps x 2 (forward + "
+        f"remat recompute) x 2 x {cfg.num_layers} layers; losses "
+        f"{[round(x, 4) for x in qat['auto'].losses]} and final params "
+        f"bit-equal to impl='ref'; warm step {q_ms['auto']:.2f} ms through "
+        f"the kernel, {q_ms['ref']:.2f} ms through the plain route (host "
+        f"clock)")
+    del qat
+    m = TRAIN_BATCH * TRAIN_SEQ
+    d_inner = 2 * cfg.d_model
+    in_d = 2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.state_dim + \
+        d_inner // cfg.ssm.head_dim
+    out["qat"]["gemms"] = qat_times(
+        dev, T.NUMERICS["photonic_heana"],
+        (("in_proj", m, cfg.d_model, in_d), ("out_proj", m, d_inner,
+                                              cfg.d_model)))
+
+    # The dense family: qwen2-0.5b at full width.
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    dense = T.train(DENSE_TRAIN_ARCH, steps=DENSE_TRAIN_STEPS, **kw)
+    assert counts() == (0, 0, 0), counts()
+    assert all(math.isfinite(x) for x in dense.losses), dense.losses
+    d_ms = sorted(dense.step_s[1:])[(DENSE_TRAIN_STEPS - 1) // 2] * 1e3
+    out["dense"] = {"losses": dense.losses, "step_ms": d_ms,
+                    "tokens_per_s": tokens_per_step / d_ms * 1e3,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    dcfg = get_config(DENSE_TRAIN_ARCH)
+    dbatch = T.device_batch(make_source(DataConfig(
+        vocab_size=dcfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH)).batch(DENSE_TRAIN_STEPS), dcfg, dev)
+    held = {"state": dense.state}
+
+    def dense_step():
+        _, held["state"], _ = T.train_step(dense.params, held["state"],
+                                           dbatch, dcfg, EXACT_CTX, adam)
+    prof = profile(dense_step, 1, ("ssd_scan", "flash_attention",
+                                   "taom_gemm"))
+    assert prof["kernel_launches_per_run"] == 0, prof
+    out["dense"]["profile"] = prof
+    log(f"[train] {DENSE_TRAIN_ARCH} exact, {DENSE_TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss {dense.first_loss:.4f} -> "
+        f"{dense.final_loss:.4f}; warm step {d_ms:.2f} ms (median of "
+        f"steps 1-{DENSE_TRAIN_STEPS - 1}), "
+        f"{out['dense']['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{out['dense']['peak_bytes'] / 2**30:.2f} GiB; attention ran its "
+        f"plain route; one more step under the profiler: "
+        f"{prof['profiled_wall_ms_per_run']:.2f} ms host clock, "
+        f"{prof['device_busy_ms_per_run']:.2f} ms device busy, idle "
+        f"{prof['device_idle_share']:.1%}, "
+        f"{prof['device_kernels_per_run']:g} kernels; top: " +
+        json.dumps(prof["top_kernels_ms_per_run"][:6]))
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script — run "
@@ -1891,13 +2185,19 @@ def main() -> int:
     # -- 11. the moe family: deepseek-v2-236b at full width, cut in depth -----
     families[MOE_ARCH] = moe_phase(dev)
 
-    # -- 12. report -----------------------------------------------------------
-    # Each kernel's launches on the served paths, each path driven with the
-    # counts set to 0 just before it and read just after.
+    # -- 12. training on the card -------------------------------------------
+    trained = train_phase(dev)
+
+    # -- 13. report -----------------------------------------------------------
+    # Each kernel's launches on the served and trained paths, each path
+    # driven with the counts set to 0 just before it and read just after.
     by_path = {"resnet_mini": (launches, 0, 0),
                LM_ARCH: (0, lm["launches"], 0),
                QWEN_ARCH: (0, 0, qwen["launches"])}
     by_path.update({arch: row["launches"] for arch, row in families.items()})
+    by_path[f"{TRAIN_ARCH} train"] = trained["exact"]["launches"]
+    by_path[f"{TRAIN_ARCH} train photonic_heana"] = (
+        trained["qat"]["launches"], 0, 0)
     entry = {
         "name": "taom_gemm_quantized",
         "route": "cuda",
@@ -1943,6 +2243,13 @@ def main() -> int:
             "f32_body_ms", "plain_ms", "bound_ms", "bound_by")}
             for r in lm_rows},
         "lm_prefill_ms": lm["photonic"]["kernel_ms_per_run"],
+        # Photonic QAT's GEMMs (mamba2-130m, 8 x 256 tokens, 8-bit HEANA:
+        # the float32 body), per call: the route a training forward takes
+        # and the body alone, device time, beside the bound at the bf16
+        # rate; launches are the QAT path's 5 steps.
+        "qat": {r["gemm"]: {key: r[key] for key in (
+            "m", "k", "d", "route_ms", "body_ms", "plain_ms", "bound_ms",
+            "bound_by")} for r in trained["qat"]["gemms"]},
     }
     bh, l, p, s, q, _ = SSD_SHAPES[0]
     ssd_entry = {

@@ -4,8 +4,10 @@ from repro_torch.core.types import (Backend, Dataflow, OpticalParams,
 from repro_torch.core.hw import (EventEnergies, OperatingPoint, TraceEnergy,
                                  check_kernel_plan_coherence,
                                  kernel_plan_mismatches, trace_energy)
-from repro_torch.core.photonic_gemm import (detection_sigma, fold_seed,
+from repro_torch.core.photonic_gemm import (detection_sigma,
+                                            device_level_dot, fold_seed,
                                             noise_shape, num_chunks,
+                                            photonic_dot_general,
                                             sample_noise)
 from repro_torch.core.scalability import (max_dpe_size, output_power_dbm,
                                           fig9_surface, table2_dpu_config)
@@ -15,7 +17,8 @@ from repro_torch.core import bpca, noise
 
 __all__ = [
     "Backend", "Dataflow", "OpticalParams", "PhotonicConfig",
-    "resolve_device", "detection_sigma", "fold_seed", "sample_noise",
+    "resolve_device", "photonic_dot_general", "device_level_dot",
+    "detection_sigma", "fold_seed", "sample_noise",
     "noise_shape", "num_chunks",
     "OperatingPoint", "EventEnergies", "TraceEnergy", "trace_energy",
     "kernel_plan_mismatches", "check_kernel_plan_coherence",

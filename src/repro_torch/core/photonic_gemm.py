@@ -1,27 +1,40 @@
-"""Photonic GEMM numerics: operating point, noise level and noise draws.
+"""Photonic GEMM numerics simulation — the paper's C1+C3 as a drop-in
+matmul (PyTorch counterpart of ``repro.core.photonic_gemm``).
 
-PyTorch counterpart of ``repro.core.photonic_gemm``.  A HEANA / AMW / MAW
-DPU contracts K in DPE-sized chunks of N = ``cfg.dpe_size``; each chunk
-psum is an exact integer dot product plus a Gaussian detection-noise draw
-whose sigma comes from the link budget at the operating point (Eqs. 1-3).
-HEANA (and the ``*_bpca`` variants) accrue psums in the analog domain and
-convert once per output; AMW / MAW convert every chunk psum.  The GEMM
-itself is ``kernels.ops.photonic_matmul``; this module holds what it
-needs: the noise sigma, the chunk count, and the noise tensor's shape and
-draws.
+A HEANA / AMW / MAW DPU contracts K in DPE-sized chunks of N =
+``cfg.dpe_size``; each chunk psum is an exact integer dot product plus a
+Gaussian detection-noise draw whose sigma comes from the link budget at
+the operating point (Eqs. 1-3).  HEANA (and the ``*_bpca`` variants)
+accrue psums in the analog domain and convert once per output; AMW / MAW
+convert every chunk psum; int_quant accumulates exactly; exact is a plain
+matmul.
 
-Noise draws come from a ``torch.Generator``.  They are not the
-reference's ``jax.random`` bits: conformance tests hand both packages the
-same pre-sampled noise, and the port's sampler is tested statistically.
+``photonic_dot_general(x, w, cfg)`` is the reference's drop-in matmul:
+per-tensor / per-output-channel quantization, the chunked psums, the
+backend's accumulation policy with the ADC's full scale taken from the
+data (``max |acc|``), the rescale — and a straight-through backward
+(gradients of an exact matmul, ``_SteDot``), so that a model trains
+through the numerics.  ``device_level_dot`` is the same product made
+explicitly through the TAOM lanes and the BPCA (HEANA backends only).
+The zoo's GEMM is ``kernels.ops.photonic_matmul`` (a calibrated ADC
+scale, the TAOM kernel); this module also holds what it needs: the noise
+sigma, the chunk count, and the noise tensor's shape and draws.
+
+Noise draws come from a ``torch.Generator``, or arrive pre-drawn.  They
+are not the reference's ``jax.random`` bits: conformance tests hand both
+packages the same pre-sampled noise, and the port's sampler is tested
+statistically.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import bpca, scalability
+from repro_torch.core import taom as taom_mod
+from repro_torch.core.taom import quantize
 from repro_torch.core.types import (NETWORK_PENALTY_DB, Backend,
                                     PhotonicConfig)
 
@@ -106,3 +119,137 @@ def generator_for(seed: int, device) -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+def _chunked(q: torch.Tensor, n: int, n_chunks: int,
+             axis_last: bool) -> torch.Tensor:
+    """Zero-pad K to n_chunks*n and reshape into chunks: (..., K) ->
+    (..., C, N) with ``axis_last``, else (K, ...) -> (C, N, ...)."""
+    k = q.shape[-1] if axis_last else q.shape[0]
+    pad = n_chunks * n - k
+    if axis_last:
+        if pad:
+            q = torch.nn.functional.pad(q, (0, pad))
+        return q.reshape(*q.shape[:-1], n_chunks, n)
+    if pad:
+        q = torch.cat([q, q.new_zeros((pad, *q.shape[1:]))])
+    return q.reshape(n_chunks, n, *q.shape[1:])
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def _simulate(x: torch.Tensor, w: torch.Tensor, noise: torch.Tensor,
+              cfg: PhotonicConfig) -> torch.Tensor:
+    """Forward photonic simulation.  noise: standard normal, pre-sampled
+    (``noise_shape``).  The scalar factors are float32, as the
+    reference's weakly typed scalars are: sigma, and for HEANA
+    float32(sigma) * sqrt(float32(C))."""
+    if cfg.backend == Backend.EXACT:
+        return x @ w
+    f32 = torch.float32
+    xq, sx = quantize(x.to(f32), cfg.bits, axis=None)             # scalar
+    wq, sw = quantize(w.to(f32), cfg.bits, axis=0)                # (1, D)
+    n_chunks = num_chunks(x.shape[-1], cfg)
+    xc = _chunked(xq, cfg.dpe_size, n_chunks, axis_last=True)     # (...,C,N)
+    wc = _chunked(wq, cfg.dpe_size, n_chunks, axis_last=False)    # (C,N,D)
+    # One BPD integration cycle per chunk: exact integer psum.
+    psums = torch.einsum("...cn,cnd->...cd", xc, wc)              # (...,C,D)
+    sigma = _f32(detection_sigma(cfg), psums)
+    if cfg.backend == Backend.INT_QUANT:
+        total = torch.sum(psums, dim=-2)
+    elif cfg.backend in CHUNK_ADC_BACKENDS:
+        # AMW/MAW: noise + ADC per chunk, digital reduction.
+        noisy = psums + sigma * noise
+        fs = noisy.abs().amax()
+        total = torch.sum(bpca.adc_readout(noisy, cfg.adc_bits, fs), dim=-2)
+    else:
+        # HEANA: analog carry across chunks (BPCA), single ADC per output.
+        acc = torch.sum(psums, dim=-2)
+        acc = acc + sigma * torch.sqrt(_f32(float(n_chunks), acc)) * noise
+        fs = acc.abs().amax()
+        total = bpca.adc_readout(acc, cfg.adc_bits, fs)
+    return (total * (sx * sw)).to(x.dtype)
+
+
+class _SteDot(torch.autograd.Function):
+    """``_simulate`` forward, exact-matmul (straight-through) backward —
+    the reference's ``_ste_dot`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, x, w, noise, cfg):
+        ctx.save_for_backward(x, w)
+        return _simulate(x, w, noise, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = torch.einsum("...d,kd->...k", g, w).to(x.dtype)
+        batch = list(range(g.dim() - 1))
+        gw = torch.tensordot(x, g, dims=(batch, batch)).to(w.dtype)
+        return gx, gw, None, None
+
+
+def _noise_for(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
+               generator: Optional[torch.Generator],
+               noise: Optional[torch.Tensor]) -> torch.Tensor:
+    """Pre-drawn ``noise`` (checked), a draw from ``generator`` when the
+    config's noise is on, else zeros (deterministic)."""
+    want = noise_shape(tuple(x.shape), tuple(w.shape), cfg)
+    if noise is not None:
+        if tuple(noise.shape) != want:
+            raise ValueError(f"noise is {tuple(noise.shape)}, the product "
+                             f"needs {want}")
+        return noise.to(device=x.device, dtype=torch.float32)
+    if generator is not None and cfg.noise_enabled:
+        return sample_noise(generator, tuple(x.shape), tuple(w.shape), cfg)
+    return torch.zeros(want, dtype=torch.float32, device=x.device)
+
+
+def photonic_dot_general(x: torch.Tensor, w: torch.Tensor,
+                         cfg: PhotonicConfig,
+                         generator: Optional[torch.Generator] = None,
+                         noise: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Drop-in matmul with HEANA/AMW/MAW numerics (see module docstring).
+
+    x: (..., K), w: (K, D) -> (..., D).  Detection noise comes pre-drawn
+    (``noise``, standard normal of ``noise_shape(x.shape, w.shape, cfg)``)
+    or from ``generator`` when ``cfg.noise_enabled``; with neither the
+    simulation is deterministic (quantization + accumulation policy
+    only).  Differentiable: the backward is an exact matmul's."""
+    if cfg.backend == Backend.EXACT:
+        return x @ w
+    return _SteDot.apply(x, w, _noise_for(x, w, cfg, generator, noise), cfg)
+
+
+def device_level_dot(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Explicit TAOM -> lanes -> BPCA path (device level, HEANA backends
+    only).  Slower but structurally faithful: it pins the fused
+    ``photonic_dot_general`` to the device model.  Noise as there (one
+    draw per output: ``noise_shape``)."""
+    if cfg.backend not in ANALOG_CARRY_BACKENDS:
+        raise ValueError(f"device_level_dot models the analog-carry "
+                         f"backends {ANALOG_CARRY_BACKENDS}, got "
+                         f"{cfg.backend}")
+    f32 = torch.float32
+    xq, sx = quantize(x.to(f32), cfg.bits, axis=None)
+    wq, sw = quantize(w.to(f32), cfg.bits, axis=0)
+    n_chunks = num_chunks(x.shape[-1], cfg)
+    xc = _chunked(xq, cfg.dpe_size, n_chunks, axis_last=True)   # (...,C,N)
+    wc = _chunked(wq, cfg.dpe_size, n_chunks, axis_last=False)  # (C,N,D)
+    # Explicit per-wavelength TAOM products on the balanced lanes, then one
+    # BPD integration per chunk cycle: (...,C,N,1) * (C,N,D) -> (...,C,N,D).
+    through, drop = taom_mod.taom_array_products(xc[..., None], wc, cfg)
+    psums = bpca.integrate_cycle(through, drop, axis=-2)          # (...,C,D)
+    acc = bpca.accumulate(psums.movedim(-2, -1), cfg=cfg, chunk_axis=-1)
+    sigma = detection_sigma(cfg)
+    if sigma > 0.0 and (noise is not None or generator is not None):
+        draw = _noise_for(x, w, cfg, generator, noise)
+        acc = acc + _f32(sigma, acc) * torch.sqrt(
+            _f32(float(n_chunks), acc)) * draw
+    total = bpca.adc_readout(acc, cfg.adc_bits, acc.abs().amax())
+    return (total * (sx * sw)).to(x.dtype)

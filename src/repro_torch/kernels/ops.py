@@ -27,6 +27,14 @@ one-token recurrence of serving (the reference has no kernel for it).
 CUDA tensors, the plain version ``_flash_blocked`` (the online softmax of
 the reference's Pallas kernel, ``repro.kernels.flash_attention``) for CPU
 tensors or when asked.
+
+Gradients (``resolve_impl``): the SSD and flash kernels are forward-only,
+as the reference's Pallas kernels are — they write into fresh buffers, so
+their outputs carry no autograd history.  When grad mode is on and an
+input requires grad, ``"auto"`` takes the plain, differentiable route
+(the reference trains through ``_ssd_chunked_jax`` and XLA attention) and
+``"kernel"`` raises ``ValueError``.  ``photonic_matmul`` keeps its kernel
+under grad: ``_TaomSTE`` carries the straight-through gradient.
 """
 from __future__ import annotations
 
@@ -45,6 +53,31 @@ from repro_torch.kernels import ssd_scan as ssd_kernel_mod
 from repro_torch.kernels import taom_gemm as taom_kernel_mod
 
 IMPLS = ("auto", "kernel", "ref")
+
+
+def resolve_impl(impl: str, tensors, forward_only: bool) -> str:
+    """The route a wrapper takes: 'kernel' or 'ref'.
+
+    ``impl``: 'auto' | 'kernel' | 'ref'; ``tensors``: the wrapper's
+    inputs, the first of which decides the device ('auto' is the kernel on
+    CUDA tensors, the plain version elsewhere).  A ``forward_only`` kernel
+    has no backward: when grad mode is on and any input requires grad,
+    'auto' takes the plain route and 'kernel' raises — checked here,
+    before anything touches the device."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if forward_only and torch.is_grad_enabled() and \
+            any(t.requires_grad for t in tensors):
+        if impl == "kernel":
+            raise ValueError(
+                "impl='kernel' with an input that requires grad: the kernel "
+                "is forward-only and its output would carry no gradient — "
+                "use impl='auto' or 'ref' (the plain, differentiable "
+                "route), or run under torch.no_grad()")
+        return "ref"
+    if impl == "auto":
+        return "kernel" if tensors[0].is_cuda else "ref"
+    return impl
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -119,16 +152,13 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
     """
     if cfg.backend == Backend.EXACT:
         return x @ w
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    impl = resolve_impl(impl, (x, w), forward_only=False)
     if cfg.noise_enabled and generator is None and noise is None:
         raise ValueError(
             "photonic_matmul: cfg.noise_enabled=True but generator=None — "
             "detection noise needs a torch.Generator on x's device (or "
             "pre-drawn noise); or set noise_enabled=False to run "
             "deterministically")
-    if impl == "auto":
-        impl = "kernel" if x.is_cuda else "ref"
     if adc_fs is None:
         adc_fs = taom_kernel_mod.calibrated_adc_fs(x.shape[-1], cfg)
     batch_shape = x.shape[:-1]
@@ -164,7 +194,8 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     reference's ``_ssd_chunked_jax`` in float32 (intra-chunk causal scores,
     per-chunk states, a loop carrying the state across chunks, inter-chunk
     term).  Shapes as ``kernels.ssd_scan.ssd_scan_chunked``; L must be a
-    multiple of ``chunk``."""
+    multiple of ``chunk``.  Differentiable: the training route, whose
+    gradient stays finite where the reference's is NaN (ROADMAP R5)."""
     bh, l, p = x.shape
     s = b.shape[-1]
     n_chunks = l // chunk
@@ -179,10 +210,14 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.cumsum(da, dim=-1)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
-    # seg > 0 above the diagonal, where exp() may overflow: a select, not
-    # a multiply by the mask, keeps the inf out of the result.
+    # seg > 0 above the diagonal, where exp() may overflow.  The select
+    # is made inside the exp as well as outside: the outer one alone keeps
+    # the inf out of the value, but not out of the gradient, 0 * inf = NaN
+    # (the reference's _ssd_chunked_jax has that fault: ROADMAP R5).  The
+    # forward is the same bit for bit.
     seg = cum[..., :, None] - cum[..., None, :]       # (BH, C, Q, Q)
-    lmat = torch.where(causal, torch.exp(seg) * dtc[..., None, :], 0.0)
+    lmat = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)) *
+                       dtc[..., None, :], 0.0)
     scores = torch.einsum("zkqs,zkts->zkqt", cc, bc) * lmat
     y_intra = torch.einsum("zkqt,zktp->zkqp", scores, xc)
 
@@ -213,11 +248,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     zeros up to a chunk multiple (dt = 0 there: decay 1 and no update, so
     the final state is unaffected) and slices y back.  impl: 'auto' (the
     kernel for CUDA tensors, the plain version for CPU tensors) | 'kernel'
-    | 'ref', as in ``photonic_matmul``.
+    | 'ref'; under grad, 'auto' is the plain version and 'kernel' raises
+    (``resolve_impl``).
     Returns (y: (BH, L, P), final_state: (BH, P, S) float32).
     """
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    impl = resolve_impl(impl, (x, dt, a, b, c), forward_only=True)
     l = x.shape[1]
     lpad = (-l) % chunk
     if lpad:
@@ -225,8 +260,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         dt = F.pad(dt, (0, lpad))
         b = F.pad(b, (0, 0, 0, lpad))
         c = F.pad(c, (0, 0, 0, lpad))
-    if impl == "auto":
-        impl = "kernel" if x.is_cuda else "ref"
     if impl == "kernel":
         y, state = ssd_kernel_mod.ssd_scan_chunked(
             x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
@@ -302,11 +335,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Softmax attention over (BH, S, D) q, k, v (heads folded into the
     batch axis, K and V already expanded per head) -> (BH, S, D) in q's
     dtype.  impl: 'auto' (the kernel for CUDA tensors, the plain version
-    for CPU tensors) | 'kernel' | 'ref', as in ``photonic_matmul``."""
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    if impl == "auto":
-        impl = "kernel" if q.is_cuda else "ref"
+    for CPU tensors) | 'kernel' | 'ref'; under grad, 'auto' is the plain
+    version and 'kernel' raises (``resolve_impl``)."""
+    impl = resolve_impl(impl, (q, k, v), forward_only=True)
     if impl == "kernel":
         return flash_kernel_mod.flash_attention_fwd(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

@@ -1,1 +1,1 @@
-"""Launchers (counterpart of ``repro.launch``): ``serve`` so far."""
+"""Launchers (counterpart of ``repro.launch``): ``serve`` and ``train``."""

@@ -145,8 +145,10 @@ def _decoder_pass(params, tokens, positions, enc_out, cfg, ctx,
 def forward(params: dict, tokens: torch.Tensor, frames: torch.Tensor,
             cfg: ArchConfig, ctx: L.PhotonicCtx = L.EXACT_CTX,
             attn_impl: str = "auto") -> torch.Tensor:
-    """Teacher-forced scoring pass: (B, S) tokens + (B, T, feat) frames ->
-    (B, S, vocab) logits."""
+    """Teacher-forced training/scoring pass: (B, S) tokens + (B, T, feat)
+    frames -> (B, S, vocab) logits.  Under grad every attention takes its
+    plain, differentiable route whatever the card
+    (``kernels.ops.resolve_impl``)."""
     b, s = tokens.shape
     enc_out = encode(params, frames, cfg, ctx, attn_impl)
     logits, _ = _decoder_pass(params, tokens,

@@ -5,17 +5,19 @@ Dispatches on ``cfg.family``: 'audio' -> ``encdec`` (whisper), everything
 else -> ``transformer``.
 
     init_params(cfg, seed, device)            -- seeded params
+    loss_fn(params, batch, cfg, ...)          -- next-token CE (training)
     init_caches(cfg, batch, max_len, dtype, device)
     prefill_fn / decode_fn                    -- serving
     params_from_jax(tree, device)             -- a reference param tree
+    adam_state_from_jax(state, device)        -- a reference AdamState
 
 ``init_params`` and ``init_caches`` run on the CUDA card unless the caller
 names another device (``device="cpu"`` runs the plain PyTorch versions);
 ``prefill_fn`` and ``decode_fn`` run where their params are.  The port runs
 every family of the zoo: ssm (mamba2), dense (qwen2, h2o-danube3,
 gemma3), hybrid (zamba2), vlm (llava), moe (deepseek v2/v3: MoE + MLA;
-v3's MTP params) and audio (whisper).  ``loss_fn`` waits for the
-training slice.  Batches are dicts: {"tokens"} (+ "frames"
+v3's MTP params) and audio (whisper).  Batches are dicts: {"tokens"}
+(+ "targets" for ``loss_fn``, + "frames"
 (B, encoder_seq, WHISPER_FRAME_FEAT) for audio, "patches" (B,
 num_image_tokens, vision_embed_dim) for vlm) — the modality frontends are
 stubs, as in the reference, so frames and patches arrive as precomputed
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, transformer
+from repro_torch.optim.optimizer import AdamState
 
 WHISPER_FRAME_FEAT = 80   # log-mel bins fed to the (stubbed) conv frontend
 
@@ -51,6 +54,53 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
     if cfg.family == "audio":
         return encdec.init_params(cfg, seed, device)
     return transformer.init_params(cfg, seed, device)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy over every position, in float32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            ctx: L.PhotonicCtx = L.EXACT_CTX, remat: bool = True,
+            ssm_impl: str = "auto", attn_impl: str = "auto",
+            mtp_weight: float = 0.0) -> torch.Tensor:
+    """Next-token CE (+ optional DeepSeek-V3 MTP auxiliary loss), a 0-d
+    float32 tensor.
+
+    Audio runs ``encdec.forward`` on ``batch["frames"]``; the others run
+    ``transformer.forward`` (``remat`` as there; the VLM's
+    ``batch["patches"]``) to the final hidden states, and the CE head is
+    a plain matmul with the embedding table (or ``lm_head``) — never
+    photonic, as in the reference.  ``mtp_weight`` > 0 with
+    ``cfg.mtp_depth`` > 0 adds the MTP head's CE
+    (``transformer.mtp_hidden``) against the targets shifted by one.
+    Under grad the SSD scan and attention resolve ``"auto"`` to their
+    plain, differentiable routes (``kernels.ops.resolve_impl``); photonic
+    GEMMs keep the TAOM kernel (straight-through backward).  The
+    reference's ``dist`` argument and its vocab-sharded CE
+    (``parallel/sharded_ce.py``) wait for distribution (ROADMAP A9): the
+    port computes the CE on one device."""
+    _check_supported(cfg)
+    _check_device(params, batch["tokens"])
+    if cfg.family == "audio":
+        logits = encdec.forward(params, batch["tokens"], batch["frames"],
+                                cfg, ctx, attn_impl)
+        return _xent(logits, batch["targets"])
+    table = transformer._head(params, cfg)["table"]
+    hidden = transformer.forward(
+        params, batch["tokens"], cfg, ctx, remat=remat, ssm_impl=ssm_impl,
+        attn_impl=attn_impl, prefix_embeds=batch.get("patches"),
+        return_hidden=True)
+    loss = _xent(hidden @ table.T, batch["targets"])
+    if mtp_weight > 0.0 and cfg.mtp_depth > 0:
+        h_mtp = transformer.mtp_hidden(params, hidden, batch["tokens"], cfg,
+                                       ctx, attn_impl)
+        loss = loss + mtp_weight * _xent(h_mtp @ table.T,
+                                         batch["targets"][:, 1:])
+    return loss
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -126,3 +176,15 @@ def params_from_jax(tree, device=None):
     device = resolve_device(device)
     return transformer.tree_map(lambda leaf: _leaf_from_numpy(leaf, device),
                                 tree)
+
+
+def adam_state_from_jax(state, device=None) -> AdamState:
+    """The reference's ``optim.optimizer.AdamState`` (numpy or array
+    leaves) as the port's: step a 0-d int32 tensor, the moments' trees
+    carried across as ``params_from_jax`` carries params, on ``device``
+    (the CUDA card unless named)."""
+    step, m, v = state
+    device = resolve_device(device)
+    return AdamState(
+        torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+        params_from_jax(m, device), params_from_jax(v, device))

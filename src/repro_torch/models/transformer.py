@@ -3,8 +3,7 @@
 A config resolves to a *layer plan*: a short list of groups, each a stack
 of ``repeats`` identical superblocks.  Params keep the reference's leading
 stack axis, so one tree map carries a reference param tree across; the
-port runs the stack as a Python loop (serving only: no remat, no
-``lax.scan``).
+port runs the stack as a Python loop (no ``lax.scan``).
 
 Families run: ``ssm`` (mamba2), ``dense`` (qwen2, h2o-danube3 with its
 sliding window, gemma3's local:global superblocks), ``hybrid`` (zamba2:
@@ -26,6 +25,10 @@ captures in a CUDA graph (``launch/serve.DecodeGraph``).  ``ssm_impl``
 picks the SSD scan's impl and ``attn_impl`` attention's
 (``models.attention.attention``): the flash kernel runs each attention
 layer's self-attention over the prompt.
+
+Training: ``forward`` (what ``model_zoo.loss_fn`` calls) takes the
+reference's ``remat`` and ``return_hidden``; under grad the SSD scan and
+attention resolve ``"auto"`` to their plain, differentiable versions.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
@@ -223,7 +227,7 @@ def mtp_hidden(params: dict, hidden: torch.Tensor, tokens: torch.Tensor,
 
     hidden: (B, S, D) main-trunk final hidden; tokens: (B, S).  Returns
     (B, S-1, D) — position t predicts tokens[t+2] (the caller aligns the
-    targets; ``loss_fn``, which reads it, waits for training).
+    targets: ``model_zoo.loss_fn``).
     """
     mp = params["mtp"]
     b, s = tokens.shape
@@ -266,9 +270,43 @@ def _run_sublayer(p, x, positions, cfg, kind, window, ctx, name, cache=None,
     return x + ff, new_cache
 
 
+def _superblock(p, layer_p, x, positions, cfg, g: Group, ctx, layer_c,
+                cache_index, ssm_impl, attn_impl, return_state):
+    """One superblock of group ``g`` (the r-th layer's params ``layer_p``
+    and cache slice ``layer_c``); returns (x, its new caches or None)."""
+    if g.kind == "mamba_shared":
+        nc = {}
+        for i in range(cfg.shared_attn_period):
+            key = f"m{i}"
+            c = None if layer_c is None else layer_c[key]
+            x, nc[key] = _run_sublayer(
+                layer_p[key], x, positions, cfg, "mamba", 0, ctx,
+                f"{g.name}.m{i}", c, cache_index, ssm_impl, attn_impl,
+                return_state)
+        c = None if layer_c is None else layer_c["sh"]
+        x, nc["sh"] = _run_sublayer(
+            p["shared_attn"], x, positions, cfg, "attn_dense", 0, ctx,
+            f"{g.name}.sh", c, cache_index, ssm_impl, attn_impl,
+            return_state)
+        return x, nc
+    if g.period:
+        nc = {}
+        for i, (kind, win) in enumerate(zip(g.period, g.windows)):
+            key = f"l{i}"
+            c = None if layer_c is None else layer_c[key]
+            x, nc[key] = _run_sublayer(
+                layer_p[key], x, positions, cfg, kind, win, ctx,
+                f"{g.name}.{i}", c, cache_index, ssm_impl, attn_impl,
+                return_state)
+        return x, nc
+    return _run_sublayer(layer_p, x, positions, cfg, g.kind, -1, ctx,
+                         g.name, layer_c, cache_index, ssm_impl, attn_impl,
+                         return_state)
+
+
 def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
                 cache_index=None, ssm_impl="auto", attn_impl="auto",
-                return_state=False):
+                return_state=False, remat=False):
     """Run one plan group superblock by superblock; returns (x,
     new_caches_or_None).  Call sites are named as in the reference's
     scanned body: after the group, ``{group}.{i}`` for the i-th sublayer
@@ -276,40 +314,33 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
     for a hybrid superblock's i-th mamba sublayer and its shared
     attention block (PhotonicCtx noise sites hang on them).  A decode step
     (``cache_index`` set) writes each layer's slice of ``caches`` in
-    place and returns ``caches`` itself."""
+    place and returns ``caches`` itself.
+
+    ``remat`` (a forward without caches only): each superblock runs under
+    ``torch.utils.checkpoint`` — its activations are dropped after the
+    forward and recomputed in the backward, as the reference's
+    ``jax.checkpoint`` does (which keeps the matmul outputs; the port
+    recomputes the whole superblock).  The recompute gives the same
+    numbers: a photonic noise site draws from a generator seeded by its
+    name (``layers.dense``), not from the global RNG, so the global RNG
+    state is not stashed (``preserve_rng_state=False``)."""
     stacked = p["stack"]
     new_caches = []
     for r in range(g.repeats):
         layer_p = tree_map(lambda a, r=r: a[r], stacked)
         layer_c = None if caches is None else \
             tree_map(lambda a, r=r: a[r], caches)
-        if g.kind == "mamba_shared":
-            nc = {}
-            for i in range(cfg.shared_attn_period):
-                key = f"m{i}"
-                c = None if layer_c is None else layer_c[key]
-                x, nc[key] = _run_sublayer(
-                    layer_p[key], x, positions, cfg, "mamba", 0, ctx,
-                    f"{g.name}.m{i}", c, cache_index, ssm_impl, attn_impl,
-                    return_state)
-            c = None if layer_c is None else layer_c["sh"]
-            x, nc["sh"] = _run_sublayer(
-                p["shared_attn"], x, positions, cfg, "attn_dense", 0, ctx,
-                f"{g.name}.sh", c, cache_index, ssm_impl, attn_impl,
-                return_state)
-        elif g.period:
-            nc = {}
-            for i, (kind, win) in enumerate(zip(g.period, g.windows)):
-                key = f"l{i}"
-                c = None if layer_c is None else layer_c[key]
-                x, nc[key] = _run_sublayer(
-                    layer_p[key], x, positions, cfg, kind, win, ctx,
-                    f"{g.name}.{i}", c, cache_index, ssm_impl, attn_impl,
-                    return_state)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x_, lp: _superblock(p, lp, x_, positions, cfg, g,
+                                           ctx, None, None, ssm_impl,
+                                           attn_impl, False)[0],
+                x, layer_p, use_reentrant=False, preserve_rng_state=False)
+            nc = None
         else:
-            x, nc = _run_sublayer(layer_p, x, positions, cfg, g.kind, -1,
-                                  ctx, g.name, layer_c, cache_index,
-                                  ssm_impl, attn_impl, return_state)
+            x, nc = _superblock(p, layer_p, x, positions, cfg, g, ctx,
+                                layer_c, cache_index, ssm_impl, attn_impl,
+                                return_state)
         new_caches.append(nc)
     if cache_index is not None:
         return x, caches
@@ -358,19 +389,29 @@ def _embed(params: dict, tokens: torch.Tensor, ctx: L.PhotonicCtx,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
-            ctx: L.PhotonicCtx = L.EXACT_CTX,
+            ctx: L.PhotonicCtx = L.EXACT_CTX, remat: bool = True,
             ssm_impl: str = "auto", attn_impl: str = "auto",
-            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Scoring forward: tokens (B, S) -> logits (B, S, vocab);
-    ``prefix_embeds`` as in ``_embed``."""
+            prefix_embeds: Optional[torch.Tensor] = None,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Training/scoring forward: tokens (B, S) -> logits (B, S, vocab);
+    ``prefix_embeds`` as in ``_embed``.  ``remat``: recompute each
+    superblock in the backward (``_scan_group``); the numbers are the same
+    either way.  ``return_hidden=True`` returns the final-norm hidden
+    states (B, S, D) instead of the logits (``model_zoo.loss_fn`` applies
+    the head itself).  Under grad the SSD scan and attention take their
+    plain, differentiable routes whatever the card
+    (``kernels.ops.resolve_impl``)."""
     check_supported(cfg)
     b, s = tokens.shape
     x = _embed(params, tokens, ctx, prefix_embeds)
     positions = prompt_positions(b, s, tokens.device)
     for g in layer_plan(cfg):
         x, _ = _scan_group(params[g.name], x, positions, cfg, g, ctx,
-                           ssm_impl=ssm_impl, attn_impl=attn_impl)
+                           ssm_impl=ssm_impl, attn_impl=attn_impl,
+                           remat=remat)
     x = L.rms_norm(params["final_ln"], x)
+    if return_hidden:
+        return x
     return L.unembed(_head(params, cfg), x, ctx)
 
 

@@ -18,8 +18,11 @@ encoder-decoder and moe prefills end to end through the kernels — and
 hold the compiled paths: the CNN forward captured in a CUDA graph
 bit-equal to the eager forward for every resnet_mini bucket (both
 policies, noise off and on from one seed), no capture after warmup, eight
-threads served bitwise, and a graphed decode step equal to the eager one.
-They import no JAX.
+threads served bitwise, and a graphed decode step equal to the eager one
+— and hold training on the card: gradients through the default forward
+bit-equal to the plain routes' (the forward-only SSD and flash kernels
+stay out of a backward), and the trainer's loss, resume and photonic QAT
+through the TAOM kernel.  They import no JAX.
 """
 import dataclasses
 import math
@@ -33,9 +36,11 @@ from repro_torch.core.taom import quantize
 from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
 from repro_torch.exec import PlanCache, execute_cnn, plan_for_network
 from repro_torch.kernels import flash_attention, ops, ref, ssd_scan, taom_gemm
+from repro_torch.launch import train as ttrain
 from repro_torch.models import lowering as lw
 from repro_torch.models import model_zoo as zoo
-from repro_torch.models.transformer import tree_leaves
+from repro_torch.models import transformer as ttransformer
+from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.models.zoo_cnn import ZOO
 
 pytestmark = pytest.mark.gpu
@@ -592,6 +597,76 @@ def test_qwen2_prefill_through_the_flash_kernel_on_card(cuda):
     for key in ("k", "v"):     # layer 1's come from layer 0's attention
         assert torch.allclose(body_k[key], body_r[key], rtol=1e-4,
                               atol=1e-4 * body_r[key].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Training: gradients on the card (ROADMAP C1)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b"])
+def test_grads_through_default_forward_equal_plain_route_on_card(cuda,
+                                                                 arch):
+    """The full config cut to 2 layers, float32: gradients through
+    ``transformer.forward`` under its defaults ('auto' routes, remat on)
+    equal those under the plain routes bit for bit, no SSD or flash kernel
+    launches under grad, every leaf gets a finite gradient, and
+    impl='kernel' with a grad-requiring input raises."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200),
+                           generator=torch.Generator().manual_seed(1))
+    tokens = tokens.to(cuda)
+    grads = {}
+    for impl in ("auto", "ref"):
+        params = tree_map(lambda p: p.requires_grad_(),
+                          zoo.init_params(cfg, 0, device=cuda))
+        kwargs = {} if impl == "auto" else {"ssm_impl": impl,
+                                            "attn_impl": impl}
+        before = (ssd_scan.LAUNCHES, flash_attention.LAUNCHES)
+        out = ttransformer.forward(params, tokens, cfg, **kwargs)
+        (out.float().square().mean()).backward()
+        assert (ssd_scan.LAUNCHES, flash_attention.LAUNCHES) == before
+        grads[impl] = {k: p.grad for k, p in tree_leaves(params)}
+    for key, g in grads["auto"].items():
+        assert g is not None and bool(torch.isfinite(g).all()), key
+        assert torch.equal(g, grads["ref"][key]), key
+    with pytest.raises(ValueError, match="forward-only"):
+        ttransformer.forward(params, tokens, cfg, ssm_impl="kernel",
+                             attn_impl="kernel")
+    with torch.no_grad():       # serving: the default is still the kernel
+        before = ssd_scan.LAUNCHES + flash_attention.LAUNCHES
+        ttransformer.forward(params, tokens, cfg)
+        assert ssd_scan.LAUNCHES + flash_attention.LAUNCHES == \
+            before + cfg.num_layers
+
+
+def test_train_on_card_falls_resumes_and_qat_launches_taom(cuda, tmp_path):
+    """``launch.train.train`` at smoke size on the card: the loss falls, a
+    resume from step 4 reproduces steps 4-7 bit for bit, and photonic QAT
+    launches the TAOM kernel twice per photonic GEMM a step (the forward
+    and the remat recompute), bit-equal to impl='ref'."""
+    kw = dict(smoke=True, batch=4, seq=64, device="cuda", log_every=100)
+    full = ttrain.train("mamba2-130m", steps=8, ckpt_dir=str(tmp_path),
+                        ckpt_every=4, **kw)
+    assert full.final_loss < full.first_loss
+    resumed_dir = tmp_path / "resume"
+    resumed_dir.mkdir()
+    (tmp_path / "step_00000004").rename(resumed_dir / "step_00000004")
+    again = ttrain.train("mamba2-130m", steps=8, ckpt_dir=str(resumed_dir),
+                         ckpt_every=100, resume=True, **kw)
+    assert again.losses == full.losses[4:]
+    runs = {}
+    for impl in ("auto", "ref"):
+        before = taom_gemm.LAUNCHES
+        runs[impl] = ttrain.train("mamba2-130m", steps=2,
+                                  numerics="photonic_heana", impl=impl, **kw)
+        runs[impl + "_launches"] = taom_gemm.LAUNCHES - before
+    layers = get_config("mamba2-130m", smoke=True).num_layers
+    assert runs["auto_launches"] == 2 * 2 * 2 * layers
+    assert runs["ref_launches"] == 0
+    assert runs["auto"].losses == runs["ref"].losses
+    for (key, a), (_, b) in zip(tree_leaves(runs["auto"].params),
+                                tree_leaves(runs["ref"].params)):
+        assert torch.equal(a, b), key
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
 from repro_torch.core import perf_model as tpm
 from repro_torch.exec import ServingEngine, execute_cnn
 from repro_torch.kernels import taom_gemm
+from repro_torch.launch import train as ttrain
 from repro_torch.models.zoo_cnn import ZOO
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,7 +61,9 @@ def test_import_loads_no_jax_no_reference_and_builds_nothing():
                  "models.layers", "models.ssm", "models.transformer",
                  "models.model_zoo", "launch.serve", "kernels.ssd_scan",
                  "kernels.nvcc", "models.attention", "models.moe",
-                 "kernels.flash_attention"):
+                 "kernels.flash_attention", "launch.train",
+                 "optim.optimizer", "data.pipeline",
+                 "checkpoint.checkpoint", "runtime.fault_tolerance"):
         assert f"repro_torch.{name}" in report["modules"], name
     assert report["foreign"] == []
     assert report["processes"] == []
@@ -106,6 +109,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     with pytest.raises(ValueError, match="data_parallel"):
         ServingEngine(params, acc, cfg, lowering=model.graph,
                       in_hw=model.in_hw, device="cpu", data_parallel=True)
+
+
+def test_train_runs_on_the_card_unless_told_otherwise(no_cuda, monkeypatch,
+                                                    capsys):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.train("mamba2-130m", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.train("mamba2-130m", steps=1, device="cuda")
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "mamba2-130m",
+                                      "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main()
+    monkeypatch.setattr(sys, "argv", sys.argv + ["--batch", "2", "--seq",
+                                                 "8", "--device", "cpu"])
+    ttrain.main()
+    assert "done: loss" in capsys.readouterr().out
 
 
 def test_seeded_params_are_device_independent():
