@@ -166,7 +166,15 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 HEANA photonic prefill of that cut in bf16 at M = 512
                 (attention on the dense route on both sides, 9 TAOM calls
                 a layer) bit-equal between the TAOM kernels and their
-                plain version;
+                plain version.  With v2's params freed, deepseek-v3-671b
+                (d_model 7168, 128 heads, the same MLA widths, 256 routed
+                experts of 2048 with top-8 and 1 shared; the MTP head
+                drawn, not run when serving) cut to 1 dense + 1 MoE layer
+                (~14.6 G parameters, ~29 GB in bf16), served as v2 (batch
+                4, prompt 1000, 16 greedy tokens: flash 2 in the prefill,
+                graphed tokens equal to eager, profiles, the decode graph),
+                with the memory held and the routing of one served prefill
+                (near-ties, dropped slots) printed;
   12. train   — train through ``launch/train.train`` on the card:
                 mamba2-130m at its full width (seeded random bf16 weights,
                 20 steps of batch 8 x seq 256 on the synthetic pipeline,
@@ -188,13 +196,43 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 kernel timed at QAT's two GEMM shapes beside the bound.
                 qwen2-0.5b at its full width, 5 steps: loss, step time,
                 peak memory, one more step profiled;
-  13. report  — the kernels' JSON line (each kernel's launches summed over
-                the served and trained paths, and per path), the card's
-                name and power limit, and the result line.
+  13. examples — the ten ``examples_torch`` scripts on the card, each
+                imported from that folder and called through
+                ``main(argv)`` with the launch counts set to 0 just before
+                it (nothing caught):
+                quickstart (TAOM and flash launched; the TAOM kernel ==
+                its oracle), the five CNN scripts (TAOM launched, no SSD or
+                flash; autoflow bit-exact, zoo's four networks
+                conformant, the engine's and the stream's zero
+                recaptures, operating_point coherent), heana_cnn_inference
+                (150 SGD steps with the loss falling, then evaluate for
+                exact, int8, heana and maw: 12 TAOM launches; the four
+                top-1s and drops), serve_lm --full for qwen2-0.5b (flash
+                24) and mamba2-130m (SSD 24), train_lm at full width for 3
+                steps and resumed for 3 more from its checkpoint (no
+                kernel under grad), photonic_qat cut to 20 steps (TAOM
+                launched); each script's host-clock seconds.  While a
+                script runs, the first call of each kernel wrapper at each
+                distinct signature keeps copies of its inputs and output;
+                after it, each is held against the plain version on the
+                same inputs (TAOM bit-equal, SSD within 1e-4 of max|plain|,
+                flash within 1e-5 in float32 and one bf16 ulp of each query
+                row's max|plain| in bf16), and every signature a CUDA graph
+                captured must also have run eagerly.  Then the
+                Table-4 columns on evaluate's 512 images (8 bits: the TAOM
+                float32 body at N = 83, 2 and 1): the kernel route's logits
+                bit-equal to impl='ref' with the same noise, each GEMM's
+                largest integer sum beside 2^24, each GEMM timed against
+                the plain route and the bound (operations at the bf16
+                rate: 8-bit operands do not fit int8);
+  14. report  — the kernels' JSON line (each kernel's launches summed over
+                the served, trained and example paths, and per path), the
+                card's name and power limit, and the result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
 imports neither JAX nor the reference package.
 """
+import contextlib
 import json
 import math
 import os
@@ -205,6 +243,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
+EXAMPLES = os.path.join(ROOT, "examples_torch")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # the same, f32 outside the tensor cores
@@ -240,6 +279,12 @@ MOE_ARCH = "deepseek-v2-236b"
 MOE_REPEATS = {"dense_head": 1, "moe_body": 2}
 MOE_BATCH, MOE_PROMPT = 4, 1000
 NEAR_TIE = 1e-5                  # phase 11's routing: a near-tie's gap
+# Phase 11's second model: deepseek-v3-671b at its full width, cut in depth
+# to 1 dense + 1 MoE layer (~14.6 G parameters with the MTP head, which is
+# drawn and not run when serving; ~29 GB in bf16), served after v2's params
+# are freed.
+MOE_V3_ARCH = "deepseek-v3-671b"
+MOE_V3_REPEATS = {"dense_head": 1, "moe_body": 1}
 # Phases 8-10's models at their full widths: (tag, arch, batch, prompt).
 FAMILIES = (("zamba2", "zamba2-7b", 4, 1000),
             ("llava", "llava-next-mistral-7b", 2, 3072),
@@ -254,7 +299,6 @@ DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen2-0.5b", 5
 # Weights the SSD scan's gradient has to reach (C1: a forward-only kernel
 # under grad would leave them without one).
 SSD_UPSTREAM = ("in_proj", "conv_w", "a_log", "dt_bias")
-BF16_FLOPS = 989e12              # 8-bit operands fit bf16 exactly
 FLASH_TOL = 1e-5                 # float32: rtol, and atol * max|plain|
 # Phase 6's shapes (BH, S, D, causal, window, dtype): qwen2-0.5b's served
 # prefill (batch 4 x 16 padded heads; the shape timed) in both dtypes,
@@ -291,6 +335,13 @@ FAMILY_FLASH = ((4, 32, 1000, 112, True, 112), (2, 32, 3072, 128, True, 128),
                 (4, 128, 1000, 192, True, 128))
 FLASH_SHAPES += tuple((b * h, s, d, causal, 0, "bfloat16")
                       for b, h, s, d, causal, _ in FAMILY_FLASH)
+
+
+# Phase 13: photonic_qat's steps a run (the script's default is 200), and
+# the Table-4 GEMMs' timing loop (a MAW call at N = 1 draws 0.6 GB of
+# noise at conv2).
+QAT_EXAMPLE_STEPS = 20
+TABLE4_ITERS, TABLE4_REPLAYS = 5, 3
 
 
 def log(msg: str) -> None:
@@ -412,14 +463,18 @@ def profile(fn, runs: int, kernel, split=()) -> dict:
 
 
 def taom_bound(m: int, k: int, d: int, elt_bytes: int,
-               noise_floats: int = 0) -> dict:
+               noise_floats: int = 0, int8: bool = True) -> dict:
     """Least time for one photonic GEMM: x (M, K) and w (K, D) read once
     and the (M, D) output written once in the operands' type (plus the
-    float32 noise when it is on), against 2 M K D operations at the int8
-    tensor-core rate."""
+    float32 noise when it is on), against 2 M K D operations at the
+    tensor-core rate of the narrowest type that holds the quantized
+    operands: int8 for the fused route (bits <= 7), bf16 for 8-bit
+    operands (the float32 body; qmax 255 does not fit int8, and an 8-bit
+    integer is exact in bf16)."""
     nbytes = elt_bytes * (m * k + k * d + m * d) + 4 * noise_floats
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * m * k * d / INT8_OPS_PER_S * 1e3
+    rate = INT8_OPS_PER_S if int8 else BF16_FLOPS_PER_S
+    ops_ms = 2.0 * m * k * d / rate * 1e3
     return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
@@ -1278,10 +1333,12 @@ def served_phase(dev, tag: str, arch: str, cfg, batch: int, prompt: int,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in tree_leaves(params))
+    held = held_memory()[0]
     log(f"[{tag}] init_params: {n_params} parameters ({n_params / 1e9:.3f} "
         f"B) in {init_s:.3f} s host clock (layers.ParamMaker: float32 "
         f"draws on the host, one stream a parameter, the layers of a stack "
-        f"on threads; then bf16 on the card)")
+        f"on threads; then bf16 on the card); {held / 2**30:.2f} GiB held "
+        f"on the card (memory_allocated)")
     prompts = toks[:, :prompt]
     eager_toks, eager_s, in_prefill, in_decode = eager_decode(
         cfg, prompts, LM_GEN, dev, params)
@@ -1363,7 +1420,7 @@ def served_phase(dev, tag: str, arch: str, cfg, batch: int, prompt: int,
         "decode_step_ms": res.decode_s * 1e3 / (LM_GEN - 1),
         "tokens_per_s": res.tokens_per_s,
         "eager_step_ms": eager_s * 1e3 / (LM_GEN - 1)},
-        "init_s": init_s, "n_params": n_params,
+        "init_s": init_s, "n_params": n_params, "held_bytes": held,
         "prefill_host": prefill_host, "profile": split, "step": step,
         "graphed": graphed}, params, prompts
 
@@ -1483,6 +1540,48 @@ def family_phase(dev, tag: str, arch: str, batch: int, prompt: int) -> dict:
     return row
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, ``moe.route`` records each call's (router_w, xf, top_e)
+    into the list it yields; the real ``moe.route`` is put back on exit."""
+    from repro_torch.models import moe
+    routes = []
+    real_route = moe.route
+
+    def recording_route(router_w, xf, mcfg):
+        top_p, top_e = real_route(router_w, xf, mcfg)
+        routes.append((router_w, xf, top_e))
+        return top_p, top_e
+
+    moe.route = recording_route
+    try:
+        yield routes
+    finally:
+        moe.route = real_route
+
+
+def near_ties(router_w, xf, k: int):
+    """Tokens whose k-th and (k+1)-th router probabilities lie within
+    ``NEAR_TIE`` of the k-th (a bool per token)."""
+    import torch
+    from repro_torch.models import moe
+    top = torch.topk(moe.router_probs(router_w, xf), k + 1, -1).values
+    return (top[:, k - 1] - top[:, k]) < NEAR_TIE * top[:, k - 1]
+
+
+def routing_stats(routes, mcfg) -> dict:
+    """Tokens, near-ties and dropped slots over recorded routes."""
+    from repro_torch.models import moe
+    out = {"tokens": 0, "near_ties": 0, "dropped_slots": 0}
+    for router_w, xf, top_e in routes:
+        _, keep, _ = moe.slot_positions(top_e, mcfg)
+        out["tokens"] += xf.shape[0]
+        out["near_ties"] += int(near_ties(router_w, xf,
+                                          mcfg.experts_per_token).sum())
+        out["dropped_slots"] += int((~keep).sum())
+    return out
+
+
 def moe_phase(dev) -> dict:
     """Phase 11: deepseek-v2-236b at its full width, cut in depth to 1
     dense + 2 MoE layers, served (``served_phase``); then a float32 cut
@@ -1495,10 +1594,6 @@ def moe_phase(dev) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import cfg_with_repeats
-    from repro_torch.models import layers as L
-    from repro_torch.models import model_zoo as zoo
-    from repro_torch.models import moe
-    from repro_torch.models import transformer as T
     from repro_torch.models.transformer import tree_map
 
     cfg = cfg_with_repeats(get_config(MOE_ARCH), MOE_REPEATS)
@@ -1511,15 +1606,40 @@ def moe_phase(dev) -> dict:
                               .float(), sub) for key, sub in params.items()}
     del params
     torch.cuda.empty_cache()
-    routes = []
-    real_route = moe.route
+    with recorded_routes() as routes:
+        worst, routing = _moe_f32_cut(dev, cfg32, params32, prompts,
+                                      routes)
+    log(f"[moe] float32 cut (1 dense + 1 MoE layer), prefill of batch "
+        f"{prompts.shape[0]}, prompt {prompts.shape[1]}, sublayer by "
+        f"sublayer, each fed the plain route's input: kernel route vs "
+        f"plain route max |diff| / max |plain| = {worst['out']:.3e} over "
+        f"the tokens whose routing agrees, {worst['cache']:.3e} over ckv "
+        f"and kr, pos equal (tolerance {SSD_TOL})")
 
-    def recording_route(router_w, xf, mcfg):
-        top_p, top_e = real_route(router_w, xf, mcfg)
-        routes.append((router_w, xf, top_e))
-        return top_p, top_e
+    # The photonic prefill of the cut in bf16 (the served params' values),
+    # attention on the reference's dense route on both sides.
+    paramsp = tree_map(lambda t: t.to(torch.bfloat16), params32)
+    del params32
+    photonic_cut_check("moe", dataclasses.replace(cfg32, dtype="bfloat16"),
+                     paramsp, prompts, dev, attn_impl="dense")
+    del paramsp
+    torch.cuda.empty_cache()
+    row.update(f32_err=worst["out"], f32_cache_err=worst["cache"],
+               routing=routing)
+    return row
 
-    moe.route = recording_route
+
+def _moe_f32_cut(dev, cfg32, params32, prompts, routes) -> tuple:
+    """``moe_phase``'s float32 cut, sublayer by sublayer, kernel route
+    against plain route, each fed the plain route's input, with ``routes``
+    (``recorded_routes``) compared token by token.  Returns (worst
+    relative errors, the routing's counts)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import tree_map
     b, s = prompts.shape
     k = cfg32.moe.experts_per_token
     x = L.embed(params32["embed"], prompts.to(dev))
@@ -1556,14 +1676,12 @@ def moe_phase(dev) -> dict:
                 differ = ((torch.sort(ek, -1).values !=
                            torch.sort(er, -1).values).any(-1) |
                           (kept[0] != kept[1]).any(-1))
-                top = torch.topk(moe.router_probs(w, xr), k + 1, -1).values
-                near = (top[:, k - 1] - top[:, k]) < NEAR_TIE * top[:, k - 1]
+                near = near_ties(w, xr, k)
                 assert not bool((differ & ~near).any()), (
                     "routing differs away from a near-tie")
                 agree = ~differ
-                routing = {"tokens": b * s, "near_ties": int(near.sum()),
-                           "routing_differs": int(differ.sum()),
-                           "dropped_slots": int((kept[1] < 0).sum())}
+                routing = {**routing_stats(rr, cfg32.moe),
+                           "routing_differs": int(differ.sum())}
                 log(f"[moe] float32 {g.name}[{r}] routing, kernel route vs "
                     f"plain route: " + json.dumps(routing, sort_keys=True) +
                     f" (near-tie: the plain run's k-th and (k+1)-th "
@@ -1581,24 +1699,45 @@ def moe_phase(dev) -> dict:
                 assert crel <= SSD_TOL, (g.name, r, key, crel)
                 worst["cache"] = max(worst["cache"], crel)
             x = yr
-    moe.route = real_route
-    log(f"[moe] float32 cut (1 dense + 1 MoE layer), prefill of batch {b}, "
-        f"prompt {s}, sublayer by sublayer, each fed the plain route's "
-        f"input: kernel route vs plain route max |diff| / max |plain| = "
-        f"{worst['out']:.3e} over the tokens whose routing agrees, "
-        f"{worst['cache']:.3e} over ckv and kr, pos equal (tolerance "
-        f"{SSD_TOL})")
+    return worst, routing
 
-    # The photonic prefill of the cut in bf16 (the served params' values),
-    # attention on the reference's dense route on both sides.
-    paramsp = tree_map(lambda t: t.to(torch.bfloat16), params32)
-    del params32, runs, caches
-    photonic_cut_check("moe", dataclasses.replace(cfg32, dtype="bfloat16"),
-                     paramsp, prompts, dev, attn_impl="dense")
-    del paramsp
+
+def moe_v3_phase(dev) -> dict:
+    """Phase 11, second model: deepseek-v3-671b at its full width, cut in
+    depth to 1 dense + 1 MoE layer, served (``served_phase``: graphed
+    tokens equal to eager, profiles, the decode graph); then the routing
+    of one served bf16 prefill: tokens, near-ties (the k-th and (k+1)-th
+    router probabilities within ``NEAR_TIE`` of the k-th) and dropped
+    slots."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import cfg_with_repeats, request_batch
+    from repro_torch.models import model_zoo as zoo
+
+    gc.collect()
+    held = held_memory()[0]
+    log(f"[moe-v3] before the draw: {held / 2**30:.2f} GiB held on the card "
+        f"(deepseek-v2's params freed)")
+    cfg = cfg_with_repeats(get_config(MOE_V3_ARCH), MOE_V3_REPEATS)
+    row, params, prompts = served_phase(dev, "moe-v3", MOE_V3_ARCH, cfg,
+                                        MOE_BATCH, MOE_PROMPT,
+                                        MOE_V3_REPEATS)
+    b, s = prompts.shape
+    caches = zoo.init_caches(cfg, b, s, torch.bfloat16, dev)
+    with recorded_routes() as routes:
+        zoo.prefill_fn(params, request_batch(cfg, prompts.to(dev)), cfg,
+                       caches)
+    k = cfg.moe.experts_per_token
+    routing = routing_stats(routes, cfg.moe)
+    assert len(routes) == MOE_V3_REPEATS["moe_body"], len(routes)
+    log(f"[moe-v3] routing of one served bf16 prefill (batch {b}, prompt "
+        f"{s}, top-{k} of {cfg.moe.num_experts}): " +
+        json.dumps(routing, sort_keys=True))
+    del params, caches, routes
+    gc.collect()
     torch.cuda.empty_cache()
-    row.update(f32_err=worst["out"], f32_cache_err=worst["cache"],
-               routing=routing)
+    row["routing"] = routing
     return row
 
 
@@ -1638,11 +1777,7 @@ def qat_times(dev, cfg, gemms) -> list:
                    "route_ms": device_ms(route), "body_ms": device_ms(body),
                    "plain_ms": device_ms(plain),
                    "matmul_ms": device_ms(lambda: torch.matmul(x, w))}
-        nbytes = 2 * (m * k + k * d + m * d)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2.0 * m * k * d / BF16_FLOPS * 1e3
-        row.update(bound_ms=max(bytes_ms, ops_ms),
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        row.update(taom_bound(m, k, d, 2, int8=taom_gemm.int8_route(cfg)))
         log("[train] TAOM at QAT's {gemm} M={m} K={k} D={d} C={chunks} "
             "(8-bit HEANA, bf16 operands): route_ms={route_ms:.5f} (float32 "
             "body alone {body_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
@@ -1864,6 +1999,332 @@ def train_phase(dev) -> dict:
     return out
 
 
+# The kernel wrappers whose calls phase 13 records while an example runs
+# (module under repro_torch.kernels, wrapper): each launches its kernel on
+# the card, and ``hold_calls`` holds what it returned against its plain
+# version.
+KERNEL_WRAPPERS = (("taom_gemm", "taom_gemm_quantized"),
+                   ("taom_gemm", "taom_gemm_fused"),
+                   ("ssd_scan", "ssd_scan_chunked"),
+                   ("flash_attention", "flash_attention_fwd"))
+
+
+def _detached(v):
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.detach().clone()
+    if isinstance(v, tuple):
+        return tuple(_detached(t) for t in v)
+    return v
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """While open, each wrapper of ``KERNEL_WRAPPERS`` is wrapped: the first
+    call at each distinct signature (the wrapper, each tensor argument's
+    shape and dtype, every other argument's value) outside a CUDA graph
+    capture keeps detached copies of its arguments and of what it
+    returned; a call inside a capture only notes its signature (a capture
+    replays the warm eager call before it, ``core.cuda_graph.capture``).
+    Yields (calls: {signature: (wrapper, arguments, output)}, the
+    signatures seen inside a capture); the wrappers are put back on
+    exit."""
+    import importlib
+    import inspect
+    import torch
+    calls, captured, saved = {}, set(), []
+    for mod_name, fn_name in KERNEL_WRAPPERS:
+        mod = importlib.import_module(f"repro_torch.kernels.{mod_name}")
+        real = getattr(mod, fn_name)
+
+        def recording(*args, _real=real, _sig=inspect.signature(real),
+                      _name=fn_name, **kwargs):
+            out = _real(*args, **kwargs)
+            bound = _sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            key = (_name,) + tuple(
+                (arg, tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor)
+                else (arg, repr(v)) for arg, v in bound.arguments.items())
+            if torch.cuda.is_available() and \
+                    torch.cuda.is_current_stream_capturing():
+                captured.add(key)
+            elif key not in calls:
+                calls[key] = (_name, {arg: _detached(v) for arg, v in
+                                      bound.arguments.items()},
+                              _detached(out))
+            return out
+
+        setattr(mod, fn_name, recording)
+        saved.append((mod, fn_name, real))
+    try:
+        yield calls, captured
+    finally:
+        for mod, fn_name, real in saved:
+            setattr(mod, fn_name, real)
+
+
+def hold_calls(label: str, calls: dict, captured: set) -> dict:
+    """Each recorded kernel call's output against its plain version on the
+    same inputs: the TAOM routes bit-equal (``ref.taom_gemm_reference``,
+    ``ref.photonic_gemm_reference``), the SSD scan within ``SSD_TOL``
+    (``ops._ssd_chunked``), flash within ``FLASH_TOL`` in float32 and one
+    bf16 ulp of each query row's max|plain| in bf16
+    (``ops._flash_blocked``, ``bf16_row_err``).  Every signature seen
+    inside a graph capture must also have run eagerly.  Returns
+    {wrapper: {"signatures": n, "max_abs_err": x}}."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    missing = captured - set(calls)
+    assert not missing, (label, "captured only", sorted(map(str, missing)))
+    held = {}
+    for key, (name, a, got) in calls.items():
+        if name == "taom_gemm_quantized":
+            want = ref.taom_gemm_reference(a["xq"], a["wq"], a["noise"],
+                                           a["cfg"], a["adc_fs"])
+        elif name == "taom_gemm_fused":
+            want = ref.photonic_gemm_reference(a["x"], a["w"], a["noise"],
+                                               a["cfg"], a["adc_fs"])
+        elif name == "ssd_scan_chunked":
+            want = ops._ssd_chunked(a["x"], a["dt"], a["a"], a["b"], a["c"],
+                                    a["chunk"])
+        else:
+            want = ops._flash_blocked(a["q"], a["k"], a["v"], a["causal"],
+                                      a["window"])
+        pairs = (list(zip(got, want)) if isinstance(got, tuple)
+                 else [(got, want)])
+        err = 0.0
+        for g, w in pairs:
+            assert g.shape == w.shape and g.dtype == w.dtype, (label, key)
+            assert bool(torch.isfinite(g).all()), (label, key)
+            err = max(err, (g.float() - w.float()).abs().max().item())
+            if name.startswith("taom"):
+                ok = torch.equal(g, w)
+            elif name == "ssd_scan_chunked":
+                ok = torch.allclose(g, w, rtol=SSD_TOL, atol=SSD_TOL *
+                                    w.abs().max().item())
+            elif g.dtype == torch.float32:
+                ok = torch.allclose(g, w, rtol=FLASH_TOL, atol=FLASH_TOL *
+                                    w.abs().max().item())
+            else:
+                ok = bf16_row_err(g, w)[1] <= 1.0
+            assert ok, (label, key, err)
+        row = held.setdefault(name, {"signatures": 0, "max_abs_err": 0.0})
+        row["signatures"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    return held
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``examples_torch/<name>.py``'s ``main(argv)`` on the card, the launch
+    counts set to 0 just before it and read just after, every kernel call
+    recorded (``recorded_calls``) and then held against its plain version
+    (``hold_calls``): (its dict, the launches (TAOM, SSD, flash),
+    host-clock seconds, synchronized, with the recording's copies; what
+    was held)."""
+    import importlib
+    import torch
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    mod = importlib.import_module(name)
+    label = " ".join([name] + argv)
+    with recorded_calls() as (calls, captured):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = mod.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = counts()
+    held = hold_calls(label, calls, captured)
+    del calls
+    torch.cuda.empty_cache()
+    log(f"[examples] {label}: {secs:.3f} s host clock, synchronized; "
+        f"launches (TAOM, SSD, flash) {launches}; each distinct kernel "
+        f"call held against its plain version: " +
+        json.dumps(held, sort_keys=True))
+    for n, names in zip(launches, (("taom_gemm_quantized",
+                                    "taom_gemm_fused"),
+                                   ("ssd_scan_chunked",),
+                                   ("flash_attention_fwd",))):
+        assert (n > 0) == any(w in held for w in names), (label, launches,
+                                                          held)
+    return out, launches, secs, held
+
+
+def table4_gemms(t4, params, x, numerics: str) -> list:
+    """The four GEMMs' inputs (a (M, K), w) of one Table-4 forward under
+    ``numerics``, recorded around ``t4.gemm_under``'s matmul (the plain
+    route, ``evaluate``'s noise)."""
+    from repro_torch.models.cnn import small_cnn_apply
+    mm = t4.gemm_under(numerics, "ref")
+    seen = []
+
+    def record(a, w):
+        seen.append((a.reshape(-1, a.shape[-1]), w))
+        return mm(a, w)
+
+    small_cnn_apply(params, x, matmul=record)
+    return seen
+
+
+def table4_phase(dev, t4, params) -> dict:
+    """The Table-4 evaluation's photonic columns through the TAOM kernel
+    on the card (8 bits: the float32 body, HEANA at N = 2, MAW at N = 1,
+    int8 at N = 83), on ``evaluate``'s 512 images: for each column the
+    kernel route's logits bit-equal to ``impl="ref"`` with the same noise
+    (every GEMM draws from a fresh generator seeded 7, as ``evaluate``
+    does), each GEMM's largest integer accumulation max |xq| @ |wq|
+    printed beside 2^24; then each GEMM's kernel route (quantize, body,
+    rescale; noise pre-drawn) and plain route timed (CUDA graph replay)
+    beside the bound (x, w, the output and the noise once at 3.35 TB/s
+    against 2 M K D operations at 989 TFLOP/s bf16, ``taom_bound``: qmax
+    255 does not fit int8)."""
+    import torch
+    from repro_torch.core.photonic_gemm import generator_for, sample_noise
+    from repro_torch.core.taom import quantize
+    from repro_torch.kernels import ops, taom_gemm
+    x, _ = t4.make_data(512, 123, device=dev)
+    out = {}
+    for numerics in ("int8", "heana", "maw"):
+        cfg = t4.numerics_config(numerics)
+        with torch.no_grad():
+            got = t4.logits_under(params, x, numerics, "kernel")
+            want = t4.logits_under(params, x, numerics, "ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (
+            numerics, (got - want).abs().max().item())
+        rows, sums = [], []
+        for a, w in table4_gemms(t4, params, x, numerics):
+            m, k = a.shape
+            d = w.shape[1]
+            xq, _ = quantize(a, cfg.bits)
+            wq, _ = quantize(w, cfg.bits, axis=0)
+            sums.append((xq.abs().double() @ wq.abs().double()).max().item())
+            noise = (sample_noise(generator_for(t4.NOISE_SEED, dev), (m, k),
+                                  (k, d), cfg) if cfg.noise_enabled else None)
+            route = lambda: ops.photonic_matmul(           # noqa: E731
+                a, w, cfg, noise=noise, impl="kernel")
+            plain = lambda: ops.photonic_matmul(           # noqa: E731
+                a, w, cfg, noise=noise, impl="ref")
+            with torch.no_grad():
+                assert torch.equal(route(), plain()), (numerics, m, k, d)
+                row = {"m": m, "k": k, "d": d,
+                       "chunks": -(-k // cfg.dpe_size),
+                       "kernel_ms": device_ms(route, TABLE4_ITERS,
+                                              TABLE4_REPLAYS),
+                       "plain_ms": device_ms(plain, TABLE4_ITERS,
+                                             TABLE4_REPLAYS)}
+            row.update(taom_bound(m, k, d, 4, 0 if noise is None
+                                  else noise.numel(),
+                                  int8=taom_gemm.int8_route(cfg)))
+            rows.append(row)
+            del noise
+        out[numerics] = {
+            "dpe_size": cfg.dpe_size, "noise": cfg.noise_enabled,
+            "kernel_ms": sum(r["kernel_ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "max_int_sum": sums, "gemms": rows}
+        log(f"[examples] Table-4 {numerics} (N = {cfg.dpe_size}, noise "
+            f"{'on' if cfg.noise_enabled else 'off'}), 512 images: kernel "
+            f"route logits bit-equal to impl='ref'; max |xq| @ |wq| per "
+            f"GEMM {[int(v) for v in sums]} (2^24 = {int(EXACT_LIMIT)}); "
+            f"per forward kernel route {out[numerics]['kernel_ms']:.4f} ms, "
+            f"plain {out[numerics]['plain_ms']:.4f} ms, bound "
+            f"{out[numerics]['bound_ms']:.5f} ms (device times, CUDA graph "
+            f"replay); per GEMM " + json.dumps(
+                [{key: r[key] for key in ("m", "k", "d", "chunks",
+                                          "kernel_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+                 for r in rows]))
+        torch.cuda.empty_cache()
+    return out
+
+
+def examples_phase(dev) -> dict:
+    """Phase 13: the ten ``examples_torch`` scripts on the card, each
+    through its ``main(argv)`` with the launch counts set to 0 just before
+    it (``run_example``); each one's kernels asserted to have run (none
+    under grad, C1), each distinct kernel call held against its plain
+    version, its own checks held, its host-clock seconds printed; then the
+    Table-4 columns' kernel route against the plain route
+    (``table4_phase``)."""
+    import tempfile
+    import torch
+    cnn = (0, 0)                 # the CNN scripts launch no SSD or flash
+    launches, secs, held = {}, {}, {}
+
+    def run(label, name, argv):
+        out, launches[label], secs[label], held[label] = run_example(name,
+                                                                     argv)
+        return out
+
+    out = run("quickstart", "quickstart", [])
+    assert launches["quickstart"][0] > 0 and launches["quickstart"][2] > 0
+    assert out["kernel_vs_oracle"] == 0.0, out["kernel_vs_oracle"]
+    out = run("autoflow_inference", "autoflow_inference", [])
+    assert out["bit_exact"]
+    out = run("serving_throughput", "serving_throughput", [])
+    assert out["retraces"] == 0
+    out = run("serving_engine", "serving_engine", [])
+    assert out["retraces"] == 0
+    assert out["stats"]["retraces_since_warmup"] == 0
+    out = run("zoo_inference", "zoo_inference", [])
+    assert len(out["conformant"]) == 4 and all(out["conformant"].values())
+    out = run("operating_point", "operating_point", [])
+    assert out["rel_gap"] == 0.0 and out["rejected"]
+    for label in ("autoflow_inference", "serving_throughput",
+                  "serving_engine", "zoo_inference", "operating_point"):
+        assert launches[label][0] > 0 and launches[label][1:] == cnn, (
+            label, launches[label])
+
+    out = run("heana_cnn_inference", "heana_cnn_inference", [])
+    # 150 exact SGD steps (no photonic GEMM), then evaluate: 4 GEMMs under
+    # each of int8, heana and maw through the TAOM kernel.
+    assert launches["heana_cnn_inference"] == (12, 0, 0), launches
+    losses = out["losses"]
+    assert len(losses) == 150 and losses[-1] < losses[0], losses[::30]
+    log(f"[examples] Table-4 on the card: 150 SGD steps, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; top-1 " +
+        json.dumps(out["top1"], sort_keys=True) + "; drop % " +
+        json.dumps(out["drop_pct"], sort_keys=True))
+    import _table4
+    table4 = table4_phase(dev, _table4, out["params"])
+    del out
+
+    run("serve_lm qwen2-0.5b", "serve_lm", ["--full", "--arch", QWEN_ARCH])
+    assert launches["serve_lm qwen2-0.5b"] == (0, 0, 24)
+    run("serve_lm mamba2-130m", "serve_lm", ["--full", "--arch", LM_ARCH])
+    assert launches["serve_lm mamba2-130m"] == (0, 24, 0)
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        argv = ["--ckpt-every", "3", "--ckpt-dir", ckpt]
+        first = run("train_lm", "train_lm", ["--steps", "3"] + argv)
+        resumed = run("train_lm resume", "train_lm", ["--steps", "6"] + argv)
+    assert first["steps"] == 3 and resumed["steps"] == 3, (first, resumed)
+    assert launches["train_lm"] == launches["train_lm resume"] == (0, 0, 0)
+    torch.cuda.empty_cache()
+
+    out = run("photonic_qat", "photonic_qat",
+              ["--steps", str(QAT_EXAMPLE_STEPS)])
+    assert launches["photonic_qat"][0] > 0 and out["dpe_size"] == 83
+    log("[examples] host-clock seconds per script: " +
+        json.dumps({k: round(v, 3) for k, v in secs.items()}))
+    # Per wrapper, over every script: distinct calls held, worst error.
+    summary = {}
+    for rows in held.values():
+        for name, row in rows.items():
+            acc = summary.setdefault(name, {"signatures": 0,
+                                            "max_abs_err": 0.0})
+            acc["signatures"] += row["signatures"]
+            acc["max_abs_err"] = max(acc["max_abs_err"], row["max_abs_err"])
+    log("[examples] kernel calls held against their plain versions over "
+        "the ten scripts: " + json.dumps(summary, sort_keys=True))
+    return {"launches": launches, "seconds": secs, "table4": table4,
+            "held": summary}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script — run "
@@ -1874,6 +2335,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device — this check runs on a GPU only",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, SRC)
     from repro_torch.core import perf_model as pm
     from repro_torch.core.taom import quantize
@@ -2182,15 +2644,23 @@ def main() -> int:
     families = {arch: family_phase(dev, tag, arch, b, p)
                 for tag, arch, b, p in FAMILIES}
 
-    # -- 11. the moe family: deepseek-v2-236b at full width, cut in depth -----
+    # -- 11. the moe family: deepseek-v2-236b, then deepseek-v3-671b, at full
+    # width, cut in depth, one model at a time -----------------------------
     families[MOE_ARCH] = moe_phase(dev)
+    families[MOE_V3_ARCH] = moe_v3_phase(dev)
 
     # -- 12. training on the card -------------------------------------------
     trained = train_phase(dev)
 
-    # -- 13. report -----------------------------------------------------------
-    # Each kernel's launches on the served and trained paths, each path
-    # driven with the counts set to 0 just before it and read just after.
+    # -- 13. the ten examples on the card ------------------------------------
+    examples = examples_phase(dev)
+    log(f"[time] phases 1-13: {time.perf_counter() - t_start:.1f} s host "
+        f"clock, the kernels' build included")
+
+    # -- 14. report -----------------------------------------------------------
+    # Each kernel's launches on the served, trained and example paths, each
+    # path driven with the counts set to 0 just before it and read just
+    # after.
     by_path = {"resnet_mini": (launches, 0, 0),
                LM_ARCH: (0, lm["launches"], 0),
                QWEN_ARCH: (0, 0, qwen["launches"])}
@@ -2198,6 +2668,13 @@ def main() -> int:
     by_path[f"{TRAIN_ARCH} train"] = trained["exact"]["launches"]
     by_path[f"{TRAIN_ARCH} train photonic_heana"] = (
         trained["qat"]["launches"], 0, 0)
+    by_path.update({f"examples/{label}": n
+                    for label, n in examples["launches"].items()})
+    # The example paths' distinct kernel calls, each held against its plain
+    # version after its script ran (phase 13), per wrapper.
+    held = examples["held"]
+    taom_held = [held[w] for w in ("taom_gemm_quantized", "taom_gemm_fused")
+                 if w in held]
     entry = {
         "name": "taom_gemm_quantized",
         "route": "cuda",
@@ -2209,7 +2686,11 @@ def main() -> int:
         # counts the replayed TAOM kernels: path_ms below).
         "launches": sum(n[0] for n in by_path.values()),
         "launches_by_path": {path: n[0] for path, n in by_path.items()},
-        "max_abs_err": max_err,
+        "max_abs_err": max([max_err] + [r["max_abs_err"]
+                                        for r in taom_held]),
+        "examples_held": {w: held[w] for w in ("taom_gemm_quantized",
+                                               "taom_gemm_fused")
+                          if w in held},
         # Per resnet_mini forward at batch 32: the sum over its 13 GEMMs
         # at the plan's tiles of the fused int8 route (two kernels a GEMM;
         # split_ms by kernel from the profiler), device time (CUDA graph
@@ -2250,6 +2731,13 @@ def main() -> int:
         "qat": {r["gemm"]: {key: r[key] for key in (
             "m", "k", "d", "route_ms", "body_ms", "plain_ms", "bound_ms",
             "bound_by")} for r in trained["qat"]["gemms"]},
+        # The Table-4 evaluation's photonic columns (phase 13: 8 bits, the
+        # float32 body; HEANA N 2, MAW N 1, int8 N 83), per forward of 512
+        # images: the kernel route and the plain route, device time,
+        # beside the bound (noise bytes included).
+        "table4": {numerics: {key: row[key] for key in (
+            "dpe_size", "noise", "kernel_ms", "plain_ms", "bound_ms")}
+            for numerics, row in examples["table4"].items()},
     }
     bh, l, p, s, q, _ = SSD_SHAPES[0]
     ssd_entry = {
@@ -2259,7 +2747,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:81",
         "launches": sum(n[1] for n in by_path.values()),
         "launches_by_path": {path: n[1] for path, n in by_path.items()},
-        "max_abs_err": ssd["max_abs_err"],
+        "max_abs_err": max(ssd["max_abs_err"],
+                           held["ssd_scan_chunked"]["max_abs_err"]),
+        "examples_held": held["ssd_scan_chunked"],
         # Per wrapper call (three kernels) at the full-width shape, device
         # time (CUDA graph replay); split_ms is the profiler's time of each
         # kernel per call; path_ms is the profiler's SSD time in one served
@@ -2291,7 +2781,9 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:75",
         "launches": sum(n[2] for n in by_path.values()),
         "launches_by_path": {path: n[2] for path, n in by_path.items()},
-        "max_abs_err": flash["max_abs_err"],
+        "max_abs_err": max(flash["max_abs_err"],
+                           held["flash_attention_fwd"]["max_abs_err"]),
+        "examples_held": held["flash_attention_fwd"],
         # Per launch at qwen2-0.5b's served shape in bf16, device time
         # (CUDA graph replay); path_ms is the profiler's flash time in one
         # served prefill divided by its launches; library_ms is PyTorch's
@@ -2321,6 +2813,9 @@ def main() -> int:
             "bound_ms", "bound_by")} for r in flash["families"]],
         "mla_path_ms": (families[MOE_ARCH]["profile"]["kernel_ms_per_run"] /
                         families[MOE_ARCH]["launches"][2]),
+        "mla_v3_path_ms": (families[MOE_V3_ARCH]["profile"]
+                           ["kernel_ms_per_run"] /
+                           families[MOE_V3_ARCH]["launches"][2]),
     }
     print(json.dumps({"kernels": [entry, ssd_entry, flash_entry]}))
     print(card_line())

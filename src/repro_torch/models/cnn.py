@@ -16,7 +16,8 @@ published block structures at 224x224 input.
 This module is the PyTorch counterpart of ``repro.models.cnn``: the
 analytic tables are copied as they are; the runnable side keeps the
 lowering hooks the executor needs (``small_cnn_graph``, ``as_graph``,
-``lowered_gemms``, ``lowered_apply``).
+``lowered_gemms``, ``lowered_apply``) and the runnable small CNN of the
+Table-4 accuracy run (``build_small_cnn``, ``small_cnn_apply``).
 
 Runnable lowerings come in two shapes:
 
@@ -30,8 +31,12 @@ Runnable lowerings come in two shapes:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional
 
+import torch
+
+from repro_torch.core.types import resolve_device
 from repro_torch.models import lowering as lw
 # Re-exported: LayerGemm's home is the lowering IR now (single source of
 # truth for analytic tables AND runnable graphs), but every historical
@@ -316,3 +321,46 @@ def lowered_apply(params: dict, x, lowering=None,
     """
     graph = as_graph(lowering or small_cnn_lowering(), params=params)
     return lw.graph_apply(params, x, graph, matmul)
+
+
+# ---------------------------------------------------------------------------
+# Runnable small CNN for the accuracy (Table 4) experiments
+# ---------------------------------------------------------------------------
+def build_small_cnn(generator: torch.Generator, num_classes: int = 10,
+                    in_hw: int = 16, in_ch: int = 3,
+                    device=None) -> dict:
+    """A small conv net (3 conv + 1 fc) with explicit im2col GEMM layers.
+
+    Each weight is a standard-normal draw from ``generator`` (a CPU
+    generator, drawn in the order conv1, conv2, conv3, fc) divided by
+    sqrt(fan_in), as the reference draws it from split PRNG keys; the
+    values differ from the reference's, the scale does not.  On
+    ``device``: the CUDA card unless the caller names another device."""
+    device = resolve_device(device)
+
+    def glorot(shape):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (w / math.sqrt(shape[0])).to(device)
+
+    return {
+        "conv1": glorot((in_ch * 9, 16)),
+        "conv2": glorot((16 * 9, 32)),
+        "conv3": glorot((32 * 9, 32)),
+        "fc": glorot(((in_hw // 4) ** 2 * 32, num_classes)),
+    }
+
+
+def _im2col(x: torch.Tensor, kk: int = 3) -> torch.Tensor:
+    """NHWC -> (N, H*W, C*kk*kk) patches with SAME padding (stride 1).
+
+    Legacy shim over lowering.im2col (which also handles stride/padding
+    and returns the output extent)."""
+    cols, _ = lw.im2col(x, kk, kk, stride=1, padding="same")
+    return cols
+
+
+def small_cnn_apply(params: dict, x: torch.Tensor,
+                    matmul: Optional[Callable] = None) -> torch.Tensor:
+    """Forward pass of the small CNN; delegates to ``lowered_apply`` with
+    its own lowering so forward and lowering cannot drift."""
+    return lowered_apply(params, x, small_cnn_lowering(), matmul)

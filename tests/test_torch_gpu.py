@@ -22,10 +22,16 @@ threads served bitwise, and a graphed decode step equal to the eager one
 — and hold training on the card: gradients through the default forward
 bit-equal to the plain routes' (the forward-only SSD and flash kernels
 stay out of a backward), and the trainer's loss, resume and photonic QAT
-through the TAOM kernel.  They import no JAX.
+through the TAOM kernel — and hold the small CNN's Table-4 columns
+(``examples_torch/_table4.py``: int8, HEANA at N = 2, MAW at N = 1, 8
+bits, noise on) through the TAOM kernel bit-equal to the plain route.
+They import no JAX.
 """
 import dataclasses
+import importlib
 import math
+import os
+import sys
 
 import pytest
 import torch
@@ -832,3 +838,24 @@ def test_capture_keeps_the_allocator_cache_warm_on_card(cuda):
     graph.replay()
     torch.cuda.synchronize(cuda)
     assert bool((y == 6).all())
+
+
+@pytest.mark.parametrize("numerics", ["int8", "heana", "maw"])
+def test_small_cnn_table4_columns_kernel_equal_plain(cuda, numerics):
+    """Every GEMM of the small CNN under a Table-4 column (the float32
+    body at N = 83, 2 and 1; each GEMM's noise from a fresh generator
+    seeded 7): the kernel route's logits equal the plain route's bit for
+    bit, and the kernel ran 4 times."""
+    examples = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples_torch")
+    if examples not in sys.path:
+        sys.path.insert(0, examples)
+    t4 = importlib.import_module("_table4")
+    params, _ = t4.train_model(steps=5, device=cuda)
+    x, _ = t4.make_data(16, 123, device=cuda)
+    with torch.no_grad():
+        before = taom_gemm.LAUNCHES
+        got = t4.logits_under(params, x, numerics, "kernel")
+        assert taom_gemm.LAUNCHES - before == 4
+        want = t4.logits_under(params, x, numerics, "ref")
+    assert torch.equal(got, want), (got - want).abs().max().item()

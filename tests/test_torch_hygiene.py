@@ -1,9 +1,13 @@
 """Port hygiene: importing ``repro_torch`` loads neither JAX nor the
 reference package and compiles nothing; entry points run on the CUDA card
-unless told otherwise and never fall back to the CPU quietly; and
-``chip_smoke.py`` imports neither package and refuses to run without a
-card."""
+unless told otherwise and never fall back to the CPU quietly; the
+``examples_torch`` scripts import neither package nor the reference's
+benchmarks and run on the card unless ``--device`` names another device;
+and ``chip_smoke.py`` imports neither package and refuses to run without
+a card."""
 import ast
+import glob
+import importlib
 import json
 import os
 import subprocess
@@ -22,6 +26,14 @@ from repro_torch.models.zoo_cnn import ZOO
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
+EXAMPLES = os.path.join(ROOT, "examples_torch")
+# The ten scripts, each with the flags that keep a CPU run short.
+EXAMPLE_ARGS = {"quickstart": [], "autoflow_inference": [],
+                "serving_throughput": [], "serving_engine": [],
+                "zoo_inference": ["--smoke"], "operating_point": [],
+                "heana_cnn_inference": [], "serve_lm": [],
+                "train_lm": ["--smoke", "--steps", "1"],
+                "photonic_qat": ["--steps", "1"]}
 
 _IMPORT_ALL = r"""
 import json, pkgutil, importlib, subprocess, sys
@@ -174,3 +186,23 @@ def test_chip_smoke_imports_no_jax_and_refuses_without_a_card(tmp_path):
                          text=True, timeout=120, cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_examples_import_no_jax_no_reference_no_benchmarks():
+    scripts = sorted(glob.glob(os.path.join(EXAMPLES, "*.py")))
+    names = {os.path.basename(p)[:-3] for p in scripts}
+    assert set(EXAMPLE_ARGS) <= names
+    for path in scripts:
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, path
+        assert "repro_torch" in roots, path
+
+
+@pytest.mark.parametrize("name", sorted(EXAMPLE_ARGS))
+def test_example_device_defaults_to_the_card(no_cuda, tmp_path, name):
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    argv = EXAMPLE_ARGS[name] + (["--ckpt-dir", str(tmp_path)]
+                                 if name == "train_lm" else [])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        importlib.import_module(name).main(argv)
