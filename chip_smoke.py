@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist-serving   # phase 14(c) alone, every card
 
 Phases (any failure exits non-zero; nothing is caught or skipped):
 
@@ -225,9 +226,52 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 largest integer sum beside 2^24, each GEMM timed against
                 the plain route and the bound (operations at the bf16
                 rate: 8-bit operands do not fit int8);
-  14. report  — the kernels' JSON line (each kernel's launches summed over
-                the served, trained and example paths, and per path), the
-                card's name and power limit, and the result line.
+  14. dist    — distribution on torch.distributed (the card is one, so
+                the paths run at world size 1 and in two processes on it):
+                (a) a world of one over NCCL (``launch/mesh.
+                make_local_mesh``), mesh (1, 1), qwen2-0.5b at full width
+                (bf16, batch 4, prompt 1000): ``prefill_fn(dist)`` with
+                the flash kernel (24 launches) and 16 greedy steps through
+                ``decode_fn(dist)``, which takes ``flash_decode_gqa`` (360
+                calls); a LOCAL run fed the same tokens: logits within
+                2^-5 of max|LOCAL| (the tests' bf16 bound), read and held
+                from the weights of seeds 0-3 (the greedy tokens LOCAL
+                would pick otherwise are counted: the bound already holds
+                them); in a float32 copy the greedy tokens equal LOCAL's
+                and the logits are within 1e-4; decode steps timed (host clock) and profiled;
+                one ``loss_fn(dist)`` step (8 x 256 tokens, the vocab-
+                sharded CE) in float32 against LOCAL (loss rtol 1e-5,
+                gradients 1e-4 of the largest), timed in bf16; then
+                ``allreduce_compressed`` of those gradients over the group
+                of one bit-equal to ``decompress(compress(g))``; and
+                ``pipeline_forward`` at one stage equal to its layer.
+                (b) two processes on the one card over gloo (NCCL takes
+                one rank a card; if this gloo has no CUDA all-reduce the
+                ranks copy through the host, and say so):
+                deepseek-v2-236b's MoE layer at full width (d 5120, 160
+                experts of 1536, top-6, 2 shared; seeded weights drawn on
+                the card; batch 4 x 1000 tokens), experts split 80/80,
+                every rank's all-reduced output bit-equal to the two
+                shard bodies summed here; qwen2-0.5b's decode attention
+                over 1016 slots split in 2, the ranks equal and within
+                2^-7 of one rank's max; the sharded CE with qwen2's vocab
+                split in 2 (float32, 8 x 256), loss within 1e-5 and
+                gradients within 1e-4 of one rank's; each timed per rank.
+                (c) ``ServingEngine(data_parallel=True, devices=[cuda,
+                cuda])`` on resnet_mini (6-bit HEANA, noise off,
+                max_batch 64): an 83-image request and 1, 3, 17 and 64
+                bit-equal to the one-device engine and to the plain route
+                (``execute_cnn(impl="ref", compiled=False)``), every TAOM
+                call of the path (shard shapes, the pinned row) recorded
+                and held bit-equal to its plain version, no capture after
+                warmup; requests timed (host clock) and profiled beside
+                the one-device engine.  ``--dist-serving`` runs (c) alone,
+                over two entries of card 0 and then over every visible
+                card;
+  15. report  — the kernels' JSON line (each kernel's launches summed over
+                the served, trained, example and distributed paths, and
+                per path), the card's name and power limit, and the
+                result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
 imports neither JAX nor the reference package.
@@ -2325,6 +2369,623 @@ def examples_phase(dev) -> dict:
             "held": summary}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: distribution
+# ---------------------------------------------------------------------------
+DIST_GEN = 16                    # greedy decode steps through decode_fn(dist)
+DIST_LOSS_BATCH, DIST_LOSS_SEQ = 8, 256
+DIST_BF16_TOL = 2.0 ** -5        # bf16 logits, dist vs LOCAL (the tests')
+DIST_BF16_SEEDS = (0, 1, 2, 3)   # the weights the bf16 chain is read from
+DIST_F32_TOL = 1e-4              # float32 logits and gradients (the tests')
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_FLOOR = 1e-6
+DIST_RANKS = 2                   # phase 14(b): processes on the one card
+DIST_JOIN_S = 300.0
+DIST_N = 83                      # phase 14(c): the request's images
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _host_ms(fn, dev, iters: int = 3) -> float:
+    """Host clock per call of fn(), synchronized, after one warm call."""
+    fn()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(dev)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max())
+
+
+def _greedy_dist(params, cfg, prompts, dist, dev, gen: int):
+    """prefill_fn(dist) + gen - 1 greedy decode_fn(dist) steps: (tokens
+    (B, gen), per-step logits (float32, on the device))."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    b, p = prompts.shape
+    caches = zoo.init_caches(cfg, b, p + gen, getattr(torch, cfg.dtype), dev)
+    logits, state = zoo.prefill_fn(params, {"tokens": prompts}, cfg, caches,
+                                   dist=dist)
+    outs, toks = [logits[:, -1].float()], [logits[:, -1].float().argmax(-1)]
+    for i in range(gen - 1):
+        logits, state = zoo.decode_fn(params, toks[-1][:, None], p + i, cfg,
+                                      state, dist=dist)
+        outs.append(logits[:, -1].float())
+        toks.append(outs[-1].argmax(-1))
+    return torch.stack(toks, 1), outs
+
+
+def _forced(params, cfg, prompts, toks, dist, dev):
+    """The same prefill and steps fed ``toks`` (teacher forcing): the
+    per-step logits."""
+    import torch
+    from repro_torch.models import model_zoo as zoo
+    b, p = prompts.shape
+    gen = toks.shape[1]
+    caches = zoo.init_caches(cfg, b, p + gen, getattr(torch, cfg.dtype), dev)
+    logits, state = zoo.prefill_fn(params, {"tokens": prompts}, cfg, caches,
+                                   dist=dist)
+    outs = [logits[:, -1].float()]
+    for i in range(gen - 1):
+        logits, state = zoo.decode_fn(params, toks[:, i:i + 1], p + i, cfg,
+                                      state, dist=dist)
+        outs.append(logits[:, -1].float())
+    return outs
+
+
+def _tokens_differ(toks, local_logits) -> int:
+    """Steps x rows whose LOCAL argmax differs from the dist token.  Not a
+    check of its own: the dist token is the argmax of the dist logits, so
+    LOCAL's margin for its own pick over it is at most the |dist - LOCAL|
+    at those two entries, which the logits bound already holds."""
+    return sum(int((ll.argmax(-1) != toks[:, i]).sum())
+               for i, ll in enumerate(local_logits))
+
+
+def _bf16_chain(params, cfg, prompts, dist, dev, launches: bool) -> dict:
+    """The served width in bf16: prefill_fn
+    (dist) with the flash kernel and DIST_GEN greedy steps through
+    decode_fn(dist) (flash_decode_gqa), against the LOCAL prefill and
+    steps fed the same tokens; with ``launches``, the kernel counts and
+    flash_decode_gqa's calls in the dist run."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe as M
+    out = {}
+    calls = []
+    real = A.flash_decode_gqa
+    A.flash_decode_gqa = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        if launches:
+            zero_counts()
+        toks, dist_logits = _greedy_dist(params, cfg, prompts, dist, dev,
+                                         DIST_GEN)
+        _sync(dev)
+        if launches:
+            out["launches"] = counts()
+        out["flash_decode_calls"] = len(calls)
+    finally:
+        A.flash_decode_gqa = real
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    local_logits = _forced(params, cfg, prompts, toks, M.LOCAL, dev)
+    out["rel"] = max(_rel(d, l) for d, l in zip(dist_logits, local_logits))
+    out["tokens_differ"] = _tokens_differ(toks, local_logits)
+    out["toks"] = toks
+    assert out["rel"] <= DIST_BF16_TOL, out["rel"]
+    return out
+
+
+def _dist_world_one(dev, smoke: bool) -> dict:
+    """14(a): a world of one (NCCL on the card), mesh (1, 1)."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim import compression as C
+    from repro_torch.parallel import pipeline_parallel as PP
+    from repro_torch.parallel import sharded_ce
+    row = {}
+    mesh = make_local_mesh(device_type=dev.type)
+    dist = M.DistCtx(mesh)
+    row["backend"] = tdist.get_backend()
+    assert tuple(mesh.shape) == (1, 1) and dist.model_shards == 1
+    cfg = get_config(QWEN_ARCH, smoke=smoke)
+    batch, prompt = (LM_BATCH, LM_PROMPT) if not smoke else (2, 24)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                            generator=torch.Generator().manual_seed(14)) \
+        .to(dev)
+    params = zoo.init_params(cfg, 0, dev)
+    row["held_bytes"] = held_memory()[0] if dev.type == "cuda" else 0
+
+    # bf16, the served width: the main path's run from seed 0's weights,
+    # then the same chain from DIST_BF16_SEEDS' others, each held to the
+    # bound (its readings give the bound's headroom at this width).
+    chains = {}
+    for seed in DIST_BF16_SEEDS:
+        p = params if seed == 0 else zoo.init_params(cfg, seed, dev)
+        chains[seed] = _bf16_chain(p, cfg, prompts, dist, dev, seed == 0)
+        del p
+    first = chains[0]
+    row["launches"] = first["launches"]
+    row["flash_decode_calls"] = first["flash_decode_calls"]
+    assert row["launches"] == (0, 0, cfg.num_layers if dev.type == "cuda"
+                               else 0), row["launches"]
+    assert row["flash_decode_calls"] == cfg.num_layers * (DIST_GEN - 1)
+    row["bf16_logits_rel"] = {seed: c["rel"] for seed, c in chains.items()}
+    row["bf16_tokens_differ"] = {seed: c["tokens_differ"]
+                                 for seed, c in chains.items()}
+    toks = first["toks"]
+    del chains
+    row["decode_step_ms"] = {}
+    caches = zoo.init_caches(cfg, batch, prompt + 8, torch.bfloat16, dev)
+    _, state = zoo.prefill_fn(params, {"tokens": prompts}, cfg, caches)
+    tok = toks[:, :1]
+    for name, d in (("LOCAL", M.LOCAL), ("dist", dist)):
+        row["decode_step_ms"][name] = _host_ms(
+            lambda d=d: zoo.decode_fn(params, tok, prompt + 1, cfg, state,
+                                      dist=d), dev)
+    if dev.type == "cuda":
+        row["decode_profile"] = {
+            name: profile(lambda d=d: zoo.decode_fn(
+                params, tok, prompt + 1, cfg, state, dist=d), 3, "flash")
+            for name, d in (("LOCAL", M.LOCAL), ("dist", dist))}
+    del state, caches
+
+    # float32 copy: the greedy tokens equal LOCAL's, logits within 1e-4.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = zoo.init_params(cfg32, 0, dev)
+    toks32, dl32 = _greedy_dist(params32, cfg32, prompts, dist, dev, DIST_GEN)
+    ltoks32, ll32 = _greedy_dist(params32, cfg32, prompts, M.LOCAL, dev,
+                                 DIST_GEN)
+    row["f32_logits_rel"] = max(_rel(d, l) for d, l in zip(dl32, ll32))
+    assert torch.equal(toks32, ltoks32), (toks32, ltoks32)
+    assert row["f32_logits_rel"] <= DIST_F32_TOL, row["f32_logits_rel"]
+
+    # One loss_fn(dist) step through the sharded CE, float32 (the tests'
+    # bounds: loss rtol 1e-5, gradients 1e-4 of the largest), then timed in
+    # bf16; then allreduce_compressed of the gradients over the group of 1.
+    lb, ls = (DIST_LOSS_BATCH, DIST_LOSS_SEQ) if not smoke else (2, 16)
+    seq = torch.randint(0, cfg.vocab_size, (lb, ls + 1),
+                        generator=torch.Generator().manual_seed(15)).to(dev)
+    lbatch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    assert sharded_ce.supports(cfg.vocab_size, dist)
+
+    def step(p0, c, d):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p0)
+        loss = zoo.loss_fn(p, lbatch, c, dist=d)
+        loss.backward()
+        return loss.detach(), {k: t.grad for k, t in tree_leaves(p)}
+    loss_l, grads_l = step(params32, cfg32, M.LOCAL)
+    loss_d, grads_d = step(params32, cfg32, dist)
+    row["loss_rel"] = abs(float(loss_d) - float(loss_l)) / abs(float(loss_l))
+    assert row["loss_rel"] <= DIST_LOSS_RTOL, row["loss_rel"]
+    floor = DIST_GRAD_FLOOR * max(float(g.abs().max())
+                                  for g in grads_l.values())
+    row["grad_rel"] = 0.0
+    for key, g in grads_d.items():
+        err = float((g - grads_l[key]).abs().max())
+        scale = float(grads_l[key].abs().max())
+        assert err <= max(DIST_F32_TOL * scale, floor), (key, err, scale)
+        row["grad_rel"] = max(row["grad_rel"], err / max(scale, floor))
+    row["loss_step_ms"] = {name: _host_ms(lambda d=d: step(params, cfg, d),
+                                          dev, iters=2)
+                           for name, d in (("LOCAL", M.LOCAL),
+                                           ("dist", dist))}
+    grads = {"/".join(map(str, k)): g for k, g in grads_d.items()}
+    reduced, _ = C.allreduce_compressed(grads, C.init_state(grads),
+                                        mesh.get_group("data"))
+    comp, _ = C.compress_grads(grads, C.init_state(grads))
+    plain = C.decompress_grads(comp)
+    assert all(torch.equal(reduced[k], plain[k]) for k in grads)
+    row["compressed_leaves"] = len(grads)
+    row["compression_ratio"] = C.compression_ratio(grads)
+    row["allreduce_compressed_ms"] = _host_ms(
+        lambda: C.allreduce_compressed(grads, C.init_state(grads),
+                                       mesh.get_group("data")), dev, iters=2)
+    del grads_l, grads_d, grads, reduced, plain, comp
+
+    # pipeline_forward at one stage against the layers run in turn.
+    from torch.distributed.device_mesh import init_device_mesh
+    stage_mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("stage",))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    d_model = cfg.d_model
+    sp = {"w": torch.randn((1, d_model, d_model), generator=gen,
+                           device=dev) * d_model ** -0.5,
+          "b": torch.randn((1, d_model), generator=gen, device=dev)}
+    xs = torch.randn((8, 256 if not smoke else 4, d_model), generator=gen,
+                     device=dev)
+
+    def block(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+    got = PP.pipeline_forward(block, sp, xs, stage_mesh, "stage")
+    want = torch.stack([block({k: v[0] for k, v in sp.items()}, x)
+                        for x in xs])
+    assert torch.equal(got, want)
+    row["pipeline_bubble"] = PP.bubble_fraction(1, 8)
+    del params, params32
+    return row
+
+
+def _stage_all_reduce(tdist) -> str:
+    """Gloo's all-reduce on CUDA tensors, or — if this build has none —
+    an explicit copy through the host around it: which one is used."""
+    import torch
+    probe = torch.ones(4, device="cuda")
+    try:
+        tdist.all_reduce(probe, op=tdist.ReduceOp.MAX)
+        tdist.all_reduce(probe)
+        torch.cuda.synchronize()
+        return "gloo on CUDA tensors"
+    except RuntimeError:
+        real = tdist.all_reduce
+
+        def staged(t, op=tdist.ReduceOp.SUM, group=None, async_op=False):
+            host = t.cpu()
+            real(host, op=op, group=group)
+            t.copy_(host)
+        tdist.all_reduce = staged
+        return "gloo through the host (no CUDA all-reduce in this gloo)"
+
+
+def _moe_inputs(cfg, dev, smoke):
+    """deepseek-v2's MoE layer weights and input, seeded, on the card (the
+    same values in every process)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(17)
+    m = cfg.moe
+    e, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device=dev) *
+                shape[-2] ** -0.5).to(torch.bfloat16)
+    p = {"router": w(d, e), "gate": w(e, d, f), "up": w(e, d, f),
+         "down": w(e, f, d),
+         "shared": {"up": {"w": w(d, m.num_shared_experts * f)},
+                    "gate": {"w": w(d, m.num_shared_experts * f)},
+                    "down": {"w": w(m.num_shared_experts * f, d)}}}
+    x = torch.randn((MOE_BATCH, MOE_PROMPT if not smoke else 6, d),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    return p, x
+
+
+def _dist_rank(rank: int, world: int, store: str, out_dir: str,
+               smoke: bool) -> None:
+    """14(b): one of the processes on the one card (gloo)."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    dev = torch.device("cuda" if not smoke else "cpu")
+    tdist.init_process_group("gloo", store=tdist.FileStore(store, world),
+                             rank=rank, world_size=world)
+    try:
+        out = {"collectives": (_stage_all_reduce(tdist) if dev.type == "cuda"
+                               else "gloo on CPU tensors")}
+        mesh = make_local_mesh(model=world, device_type=dev.type)
+        dist = M.DistCtx(mesh)
+        # The MoE layer, experts split world ways.
+        mcfg = get_config(MOE_ARCH, smoke=smoke)
+        p, x = _moe_inputs(mcfg, dev, smoke)
+        e_loc = mcfg.moe.num_experts // world
+        sl = slice(rank * e_loc, (rank + 1) * e_loc)
+        mine = {**p, **{k: p[k][sl].contiguous()
+                        for k in ("gate", "up", "down")}}
+        out["moe"] = M.moe_ffn(mine, x, mcfg.moe, dist=dist).cpu()
+        out["moe_ms"] = _host_ms(lambda: M.moe_ffn(mine, x, mcfg.moe,
+                                                   dist=dist), dev)
+        del p, mine
+        # qwen2's decode attention over a cache split over the ranks.
+        q_in = _decode_inputs(dev, smoke)
+        out["decode"] = A.flash_decode_gqa(*q_in, dist=dist).cpu()
+        out["decode_ms"] = _host_ms(
+            lambda: A.flash_decode_gqa(*q_in, dist=dist), dev, iters=10)
+        # The sharded CE, qwen2's vocab split world ways.
+        table, hidden, targets = _ce_inputs(dev, smoke)
+        out["ce"] = _ce_step(table, hidden, targets, dist)
+        out["ce_ms"] = _host_ms(
+            lambda: _ce_step(table, hidden, targets, dist), dev)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        tdist.barrier()
+    finally:
+        tdist.destroy_process_group()
+
+
+def _decode_inputs(dev, smoke):
+    """q, k, v, pos, q_pos, spec of qwen2-0.5b's decode attention at
+    LM_BATCH, LM_PROMPT + DIST_GEN slots (bf16, seeded)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import attn_spec
+    cfg = get_config(QWEN_ARCH, smoke=smoke)
+    spec = attn_spec(cfg)
+    b, slots = (LM_BATCH, LM_PROMPT + DIST_GEN) if not smoke else (2, 32)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q = torch.randn((b, 1, spec.num_heads, spec.head_dim), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, slots, spec.num_kv_heads, spec.head_dim),
+                        generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pos = torch.arange(slots, dtype=torch.int32, device=dev).repeat(b, 1)
+    pos[:, slots - 5:] = -1                       # slots not yet written
+    q_pos = torch.full((b, 1), slots - 6, dtype=torch.int32, device=dev)
+    return q, k, v, pos, q_pos, spec
+
+
+def _ce_inputs(dev, smoke):
+    """qwen2-0.5b's head table and a DIST_LOSS_BATCH x DIST_LOSS_SEQ batch
+    of hidden states and targets, float32, seeded."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN_ARCH, smoke=smoke)
+    b, s = (DIST_LOSS_BATCH, DIST_LOSS_SEQ) if not smoke else (2, 16)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    table = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                        device=dev) * cfg.d_model ** -0.5
+    hidden = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    return table, hidden, targets
+
+
+def _ce_step(table, hidden, targets, dist) -> dict:
+    """sharded_xent's loss and its gradients (table, hidden), on the
+    CPU."""
+    from repro_torch.parallel import sharded_ce
+    t = table.detach().requires_grad_()
+    h = hidden.detach().requires_grad_()
+    loss = sharded_ce.sharded_xent(t, h, targets, dist)
+    loss.backward()
+    return {"loss": loss.detach().cpu(), "table": t.grad.cpu(),
+            "hidden": h.grad.cpu()}
+
+
+def _dist_two_ranks(dev, smoke: bool) -> dict:
+    """14(b): DIST_RANKS processes on the one card, gloo; each rank's
+    results against the same computation in this process (its world of
+    one, mesh (1, 1))."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as tmp
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    tmpdir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(_dist_rank, args=(DIST_RANKS, os.path.join(
+        tmpdir, "store"), tmpdir, smoke), nprocs=DIST_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + DIST_JOIN_S
+    try:
+        while not ctx.join(timeout=1.0):
+            assert time.monotonic() < deadline, "phase 14(b) ranks hung"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    row = {"spawn_s": time.perf_counter() - t0}
+    outs = [torch.load(os.path.join(tmpdir, f"rank{r}.pt"))
+            for r in range(DIST_RANKS)]
+    row["collectives"] = outs[0]["collectives"]
+
+    # MoE: every rank's all-reduced output == the shards' bodies summed
+    # here, plus the shared experts, bit for bit.
+    mcfg = get_config(MOE_ARCH, smoke=smoke)
+    p, x = _moe_inputs(mcfg, dev, smoke)
+    e_loc = mcfg.moe.num_experts // DIST_RANKS
+    routed = None
+    for s in range(DIST_RANKS):
+        sl = slice(s * e_loc, (s + 1) * e_loc)
+        part = M._routed_local(p["router"], p["gate"][sl], p["up"][sl],
+                               p["down"][sl], x, mcfg.moe, DIST_RANKS, s)
+        routed = part if routed is None else routed + part
+    want = (L.mlp(p["shared"], x, L.EXACT_CTX, "moe.shared") + routed).cpu()
+    for r, o in enumerate(outs):
+        assert torch.equal(o["moe"], want), r
+    del p, routed
+    # Decode attention: the ranks agree bit for bit, and with one rank.
+    mesh = make_local_mesh(device_type=dev.type)
+    q_in = _decode_inputs(dev, smoke)
+    one = A.flash_decode_gqa(*q_in, dist=M.DistCtx(mesh)).cpu()
+    row["decode_rel"] = _rel(outs[0]["decode"], one)
+    assert all(torch.equal(o["decode"], outs[0]["decode"]) for o in outs)
+    assert row["decode_rel"] <= 2.0 ** -7, row["decode_rel"]
+    # The sharded CE: loss and gradients against one rank.
+    ce_one = _ce_step(*_ce_inputs(dev, smoke), M.DistCtx(mesh))
+    row["ce_loss_rel"] = max(_rel(o["ce"]["loss"], ce_one["loss"])
+                             for o in outs)
+    row["ce_grad_rel"] = max(_rel(o["ce"][k], ce_one[k]) for o in outs
+                             for k in ("table", "hidden"))
+    assert row["ce_loss_rel"] <= DIST_LOSS_RTOL, row["ce_loss_rel"]
+    assert row["ce_grad_rel"] <= DIST_F32_TOL, row["ce_grad_rel"]
+    for k in ("moe_ms", "decode_ms", "ce_ms"):
+        row[k] = [o[k] for o in outs]
+    row["decode_one_rank_ms"] = _host_ms(
+        lambda: A.flash_decode_gqa(*q_in, dist=M.DistCtx(mesh)), dev,
+        iters=10)
+    return row
+
+
+def _dist_serving(dev, entries) -> dict:
+    """14(c): data-parallel serving of resnet_mini over ``entries`` (two
+    entries of the one card, or several cards), against the one-device
+    engine on ``dev`` and the plain route."""
+    import torch
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
+    from repro_torch.exec import ServingEngine
+    from repro_torch.models.zoo_cnn import ZOO
+    model = ZOO["resnet_mini"]
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    acc = pm.AcceleratorConfig.equal_area("heana", Dataflow.OS, 1.0)
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                         noise_enabled=False)
+    kw = dict(lowering=model.graph, in_hw=model.in_hw, max_batch=64,
+              device=dev)
+    one = ServingEngine(params, acc, cfg, **kw)
+    one.warmup()
+    zero_counts()
+    dp = ServingEngine(params, acc, cfg, data_parallel=True,
+                       devices=entries, plan_cache=one.plan_cache, **kw)
+    assert dp.data_parallel and dp.stats()["n_devices"] == len(entries)
+    x = torch.randn((DIST_N, *model.in_hw, model.in_ch),
+                    generator=torch.Generator().manual_seed(20)).to(dev)
+    # Every TAOM call of the data-parallel path, at its shard shapes with
+    # the pinned row, is recorded (the eager run before each capture) and
+    # held against its plain version on the same inputs.
+    with recorded_calls() as (calls, captured):
+        dp.warmup()
+        got = dp.infer(x)
+        _sync(dev)
+    row = {"launches": counts()}
+    row["held"] = hold_calls("data-parallel serving", calls, captured)
+    assert row["held"] or dev.type != "cuda"
+    assert torch.equal(got, one.infer(x))
+    assert torch.equal(got, plain_served(dp, params, x, cfg, model.graph,
+                                         dev))
+    for n in (1, 3, 17, 64):
+        got = dp.infer(x[:n])
+        assert torch.equal(got, one.infer(x[:n])), n
+        assert torch.equal(got, plain_served(dp, params, x[:n], cfg,
+                                             model.graph, dev)), n
+    row["request_ms"] = {name: _host_ms(lambda e=e: e.infer(x), dev,
+                                        iters=10)
+                         for name, e in (("one", one), ("data_parallel", dp))}
+    s = dp.stats()
+    assert s["retraces_since_warmup"] == 0 and s["data_parallel"]
+    row["retraces_since_warmup"] = s["retraces_since_warmup"]
+    if dev.type == "cuda":
+        row["profile"] = {name: profile(lambda e=e: e.infer(x), 3,
+                                        "taom_gemm")
+                          for name, e in (("one", one), ("data_parallel",
+                                                          dp))}
+    return row
+
+
+def plain_served(engine, params, x, cfg, lowering, dev):
+    """What ``engine.infer(x)`` must return: each top-bucket chunk of x,
+    zero-padded to its bucket, through ``execute_cnn(impl="ref",
+    compiled=False)`` (the plain TAOM route, op by op, one device)."""
+    import torch
+    from repro_torch.exec import execute_cnn
+    want = []
+    for lo in range(0, x.shape[0], engine.max_bucket):
+        chunk = x[lo:lo + engine.max_bucket]
+        n = chunk.shape[0]
+        bucket = next(b for b in engine.buckets if b >= n)
+        xb = torch.cat([chunk, chunk.new_zeros((bucket - n,) +
+                                               tuple(chunk.shape[1:]))])
+        res = execute_cnn(params, xb, engine.plans[bucket], cfg, impl="ref",
+                          lowering=lowering, device=dev, compiled=False)
+        want.append(res.logits[:n])
+    return torch.cat(want)
+
+
+def dist_phase(dev, smoke: bool = False) -> dict:
+    """Phase 14: distribution on torch.distributed."""
+    import torch.distributed as tdist
+    t0 = time.perf_counter()
+    row = {"world_one": _dist_world_one(dev, smoke)}
+    a = row["world_one"]
+    log(f"[dist] (a) world of one over {a['backend']}, mesh (1, 1), "
+        f"{QWEN_ARCH}: prefill_fn(dist) flash launches "
+        f"{a['launches'][2]}, decode_fn(dist) through flash_decode_gqa "
+        f"{a['flash_decode_calls']} times; bf16 logits vs LOCAL "
+        f"of max by weight seed {json.dumps(a['bf16_logits_rel'])} (bound "
+        f"{DIST_BF16_TOL}, largest "
+        f"{max(a['bf16_logits_rel'].values()):.3e}), greedy tokens "
+        f"differing {json.dumps(a['bf16_tokens_differ'])} of "
+        f"{LM_BATCH * DIST_GEN}; float32 tokens equal, logits "
+        f"{a['f32_logits_rel']:.3e}; decode step ms "
+        f"{json.dumps(a['decode_step_ms'])} (host clock); loss_fn(dist) "
+        f"float32 loss rel {a['loss_rel']:.3e}, gradients "
+        f"{a['grad_rel']:.3e}; loss step ms {json.dumps(a['loss_step_ms'])}"
+        f"; allreduce_compressed of {a['compressed_leaves']} gradient "
+        f"leaves bit-equal to decompress(compress(g)), ratio "
+        f"{a['compression_ratio']:.3f}, "
+        f"{a['allreduce_compressed_ms']:.2f} ms; pipeline_forward at one "
+        f"stage == the layer; {a['held_bytes'] / 2**30:.2f} GiB held with "
+        f"the bf16 params")
+    if "decode_profile" in a:
+        log("[dist] (a) decode step profile: " + json.dumps(
+            {k: {f: v[f] for f in ("device_busy_ms_per_run",
+                                   "device_idle_share",
+                                   "device_kernels_per_run")}
+             for k, v in a["decode_profile"].items()}))
+    row["two_ranks"] = _dist_two_ranks(dev, smoke)
+    b = row["two_ranks"]
+    log(f"[dist] (b) {DIST_RANKS} processes on one device, {b['collectives']}"
+        f": {MOE_ARCH} MoE layer (experts split {DIST_RANKS} ways) "
+        f"bit-equal to the shards' bodies summed, {b['moe_ms']} ms; "
+        f"{QWEN_ARCH} decode attention over 2 sequence shards "
+        f"{b['decode_rel']:.3e} of one rank's max, {b['decode_ms']} ms "
+        f"(one rank {b['decode_one_rank_ms']:.3f}); sharded CE loss rel "
+        f"{b['ce_loss_rel']:.3e}, gradients {b['ce_grad_rel']:.3e}, "
+        f"{b['ce_ms']} ms; spawn to join {b['spawn_s']:.1f} s")
+    tdist.destroy_process_group()
+    row["serving"] = _dist_serving(dev, [dev, dev])
+    log_dist_serving(row["serving"], [dev, dev])
+    row["seconds"] = time.perf_counter() - t0
+    log(f"[time] phase 14: {row['seconds']:.1f} s host clock"
+        + (f", on {card_line()}" if dev.type == "cuda" else ""))
+    return row
+
+
+def log_dist_serving(c: dict, entries) -> None:
+    log(f"[dist] (c) resnet_mini data-parallel over "
+        f"{[str(d) for d in entries]} at N = {DIST_N}: logits bit-equal "
+        f"to one device and to execute_cnn(impl='ref', compiled=False), also at N = 1, 3, 17, "
+        f"64; the path's TAOM calls bit-equal to their plain versions, "
+        f"by wrapper {json.dumps(c['held'])}; "
+        f"retraces_since_warmup {c['retraces_since_warmup']}, TAOM "
+        f"launches {c['launches'][0]} (warmup + the checks); request ms "
+        f"{json.dumps(c['request_ms'])} (host clock); profile "
+        + json.dumps({k: {f: v[f] for f in (
+            "device_busy_ms_per_run", "device_idle_share",
+            "kernel_launches_per_run")}
+            for k, v in c.get("profile", {}).items()}))
+
+
+def dist_serving_only() -> int:
+    """``--dist-serving``: phase 14(c) alone, over two entries of card 0
+    and then over every visible card (with more than one), each beside
+    the one-device engine on card 0."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    n = torch.cuda.device_count()
+    runs = [[dev, dev]]
+    if n > 1:
+        runs.append([torch.device("cuda", i) for i in range(n)])
+    for entries in runs:
+        log_dist_serving(_dist_serving(dev, entries), entries)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    log(f"[dist] {n} cards visible: " + "; ".join(cards.split("\n")[:n]))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script — run "
@@ -2337,6 +2998,8 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     sys.path.insert(0, SRC)
+    if sys.argv[1:] == ["--dist-serving"]:
+        return dist_serving_only()
     from repro_torch.core import perf_model as pm
     from repro_torch.core.taom import quantize
     from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
@@ -2519,18 +3182,7 @@ def main() -> int:
         f"memory_allocated / memory_reserved across warmup, the cache "
         f"emptied before each reading; one private pool each)")
     for x, got in zip(requests, served):
-        want = []
-        for lo in range(0, x.shape[0], engine.max_bucket):
-            chunk = x[lo:lo + engine.max_bucket]
-            n = chunk.shape[0]
-            bucket = next(b for b in engine.buckets if b >= n)
-            xb = torch.cat([chunk, chunk.new_zeros((bucket - n,) +
-                                                   tuple(chunk.shape[1:]))])
-            res = execute_cnn(params, xb, engine.plans[bucket], main_cfg,
-                              impl="ref", lowering=model.graph, device=dev,
-                              compiled=False)
-            want.append(res.logits[:n])
-        want = torch.cat(want)
+        want = plain_served(engine, params, x, main_cfg, model.graph, dev)
         assert got.shape == (x.shape[0], model.num_classes), got.shape
         assert bool(torch.isfinite(got).all())
         assert torch.equal(got, want), (
@@ -2657,7 +3309,10 @@ def main() -> int:
     log(f"[time] phases 1-13: {time.perf_counter() - t_start:.1f} s host "
         f"clock, the kernels' build included")
 
-    # -- 14. report -----------------------------------------------------------
+    # -- 14. distribution on torch.distributed --------------------------------
+    dist = dist_phase(dev)
+
+    # -- 15. report -----------------------------------------------------------
     # Each kernel's launches on the served, trained and example paths, each
     # path driven with the counts set to 0 just before it and read just
     # after.
@@ -2670,6 +3325,8 @@ def main() -> int:
         trained["qat"]["launches"], 0, 0)
     by_path.update({f"examples/{label}": n
                     for label, n in examples["launches"].items()})
+    by_path[f"{QWEN_ARCH} dist"] = dist["world_one"]["launches"]
+    by_path["resnet_mini data-parallel"] = dist["serving"]["launches"]
     # The example paths' distinct kernel calls, each held against its plain
     # version after its script ran (phase 13), per wrapper.
     held = examples["held"]

@@ -11,13 +11,15 @@ Demonstrates exec.serving end to end on the port:
    batch).
 3. Coalesce single-image requests through the thread-safe MicroBatcher
    (Futures resolve with each request's row of the batched logits).
-4. Data-parallel serving over several devices is not ported yet
-   (ROADMAP A9: ``ServingEngine(data_parallel=True)`` raises); the
-   section says so and names the device count.
+4. Data-parallel serving over the devices given (``--devices``, default
+   every visible card): each bucket split over them, logits bitwise equal
+   to the single-device engine's; skipped with one device, as the
+   reference skips it.
 5. Print the serving metrics: p50/p99 latency, sustained throughput,
    padding overhead, cache stats.
 
 Run:  PYTHONPATH=src python examples_torch/serving_engine.py [--device cpu]
+      [--devices cpu,cpu]
 """
 import argparse
 import time
@@ -40,8 +42,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "PyTorch versions")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated data-parallel entries for §4 "
+                         "(default: every visible card, or --device); an "
+                         "entry may repeat")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    if args.devices:
+        devices = [resolve_device(d) for d in args.devices.split(",")]
+    elif device.type == "cuda":
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        devices = [device]
     zoo = ZOO[NETWORK]
     gen = torch.Generator().manual_seed(0)
     params = zoo.init_params(gen, device=device)
@@ -83,11 +96,24 @@ def main(argv=None) -> dict:
     print(f"== micro-batcher coalesced 12 single-image requests: "
           f"{mb_stats} ==")
 
-    # 4 — data-parallel path: not ported (ROADMAP A9)
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    print(f"== data-parallel skipped ({n_dev} device(s) visible; "
-          f"ServingEngine(data_parallel=True) is not ported yet, "
-          f"ROADMAP A9) ==")
+    # 4 — data-parallel path (needs > 1 device)
+    n_dev = len(devices)
+    dp_same = None
+    if n_dev > 1 and MAX_BATCH % n_dev == 0:
+        dp = ServingEngine(params, acc, cfg, lowering=zoo.graph,
+                           in_hw=zoo.in_hw, max_batch=MAX_BATCH,
+                           plan_cache=engine.plan_cache,
+                           data_parallel=True, devices=devices,
+                           device=device)
+        dp.warmup()
+        x = torch.randn((MAX_BATCH, h, w, zoo.in_ch), generator=gen) \
+            .to(device)
+        dp_same = bool(torch.equal(dp.infer(x), engine.infer(x)))
+        print(f"== data-parallel over {n_dev} devices: logits bitwise "
+              f"equal to single-device = {dp_same} ==")
+    else:
+        print(f"== data-parallel skipped ({n_dev} device(s); try "
+              f"--devices cpu,cpu or --devices cuda,cuda) ==")
 
     # 5 — serving metrics
     s = engine.stats()
@@ -105,7 +131,8 @@ def main(argv=None) -> dict:
           f"{s['compile_cache']['entries']}")
     return {"buckets": list(engine.buckets), "warmup_s": cold,
             "retraces": retraces, "microbatcher": mb_stats,
-            "n_devices": n_dev, "stats": s}
+            "n_devices": n_dev, "data_parallel_equal": dp_same,
+            "stats": s}
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
-"""One CUDA-graph capture routine for the port's compiled paths: the CNN
-forward (``exec.executor.CompiledForward``) and the LM decode step
+"""The CUDA-graph capture routines for the port's compiled paths: the CNN
+forward (``exec.executor.CompiledForward``, and a graph a segment for each
+shard of ``ShardedForward``) and the LM decode step
 (``launch.serve.DecodeGraph``), the port's counterparts of ``jax.jit``.
 """
 from __future__ import annotations
 
 import threading
-from typing import Callable, Optional, Tuple, TypeVar
+from typing import Callable, List, Optional, Sequence, Tuple, TypeVar
 
 import torch
 
@@ -33,17 +34,33 @@ def capture(fn: Callable[[], T], device: torch.device,
     eager work after a capture (a prefill, another request) does not pay
     ``cudaMalloc`` again.  A capture that fails raises.
     """
+    return capture_all([fn], device, warm or fn)[0]
+
+
+def capture_all(fns: Sequence[Callable[[], T]], device: torch.device,
+                warm: Optional[Callable[[], object]] = None
+                ) -> List[Tuple["torch.cuda.CUDAGraph", T]]:
+    """Capture each of ``fns`` in turn into a graph of its own, as
+    ``capture`` does, on one side stream and in one memory pool: the
+    graphs are to be replayed in this order, each reading what the ones
+    before it left in the pool.  ``warm()``, if given, runs first."""
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
     side.wait_stream(current)
-    graph = torch.cuda.CUDAGraph()
+    pool = torch.cuda.graph_pool_handle()
+    captured = []
     with torch.cuda.stream(side):
-        (warm or fn)()
+        if warm is not None:
+            warm()
         with _CAPTURE_LOCK:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = fn()
-            finally:
-                graph.capture_end()
+            for fn in fns:
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = fn()
+                finally:
+                    graph.capture_end()
+                captured.append((graph, out))
     current.wait_stream(side)
-    return graph, out
+    return captured

@@ -9,12 +9,11 @@
     pure forward (``forward_fn``) captured once per input shape in a CUDA
     graph and replayed (the reference jit-compiles it);
   * serving   — power-of-two batch buckets, zero padding, warmup that
-    captures every bucket, a thread-safe micro-batcher, and serving
-    metrics including modeled joules per image;
+    captures every bucket, a thread-safe micro-batcher, a data-parallel
+    path over several device entries (bitwise equal to one device), and
+    serving metrics including modeled joules per image;
   * report    — modeled latency/energy aggregated next to executed
     numerics, as JSON-safe dicts and markdown.
-
-Not ported yet: the reference's data-parallel serving path (ROADMAP A9).
 """
 from repro_torch.exec.executor import (ExecutionResult, LayerTrace,
                                        clear_compile_cache,

@@ -44,6 +44,7 @@ captures it in a CUDA graph:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import threading
@@ -57,7 +58,7 @@ from repro_torch.core import dataflow as df
 from repro_torch.core import hw
 from repro_torch.core.photonic_gemm import (fold_seed, generator_for,
                                             sample_noise)
-from repro_torch.core.types import PhotonicConfig, resolve_device
+from repro_torch.core.types import Backend, PhotonicConfig, resolve_device
 from repro_torch.exec import plan_cache as pc
 from repro_torch.exec.scheduler import CnnPlan, LayerPlan
 from repro_torch.kernels import ops
@@ -244,6 +245,103 @@ def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     return vals[graph.output.name], fingerprints, acts
 
 
+def _pin_row(cols: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """cols (M, K) with a last row (amax, 0, ..., 0): its |max| is then
+    ``amax`` (>= the shard's own), whatever the shard holds."""
+    row = torch.nn.functional.pad(amax.reshape(1, 1).to(cols.dtype),
+                                  (0, cols.shape[1] - 1))
+    return torch.cat([cols, row])
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for a shard's launches (a kernel launches
+    on its tensors' device's stream, which must be the current device's)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class _Shard:
+    """One shard of the data-parallel forward (noise off), run a segment
+    at a time: segment 0 walks from the input to the first GEMM's
+    operand, segment s runs GEMM s - 1 and walks on to GEMM s's operand,
+    and the last one ends at the logits (``logits``).  A pinned shard's
+    GEMM quantizes with the batch's |max| (``segment``'s ``amax``, see
+    ``forward_shards_fn``), and each segment returns the |max| of the
+    operand it stops at (None at the end, or unpinned)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
+                 graph: lw.OpGraph, plan: CnnPlan, cfg: PhotonicConfig,
+                 impl: str, pin: bool) -> None:
+        self._steps = lw.graph_steps(params, x, graph)
+        self._gemm = None
+        self._out = graph.output.name
+        self._plan, self._cfg, self._impl, self._pin = plan, cfg, impl, pin
+        self.logits: Optional[torch.Tensor] = None
+
+    def segment(self, amax: Optional[torch.Tensor]
+                ) -> Optional[torch.Tensor]:
+        try:
+            if self._gemm is None:
+                self._gemm = next(self._steps)
+            else:
+                cols, w, gi, _ = self._gemm
+                out = _layer_matmul(
+                    _pin_row(cols, amax) if self._pin else cols, w,
+                    self._cfg, None, self._plan.layers[gi], self._impl)
+                self._gemm = self._steps.send(out[:-1] if self._pin
+                                              else out)
+        except StopIteration as done:
+            self.logits = done.value[self._out]
+            return None
+        return self._gemm[0].abs().amax() if self._pin else None
+
+
+def _batch_amax(local: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The batch's |max| from the shards' own, on the first shard's
+    device (GSPMD's all-reduce of the max)."""
+    home = local[0].device
+    return torch.stack([a.to(home) for a in local]).amax()
+
+
+def forward_shards_fn(params: Sequence[Dict[str, torch.Tensor]],
+                      xs: Sequence[torch.Tensor], *, lowering,
+                      plan: CnnPlan, cfg: PhotonicConfig,
+                      impl: str) -> List[torch.Tensor]:
+    """The forward over the shards of one batch, noise off: xs[i] (on its
+    device, with its replica params[i]) -> each shard's logits.
+
+    The shards walk the graph in lockstep, a segment between two GEMMs at
+    a time (``_Shard``).  A photonic GEMM quantizes its activations with
+    ONE scale, the max over the whole batch, as the reference's
+    data-parallel forward does (GSPMD turns that max into an all-reduce):
+    each shard's |max| is reduced over the shards, and the shard's
+    operand gets one more row that pins its max to the global one (its
+    output row is dropped).  Rows are independent in every GEMM and glue
+    op (the global pool sums an image in one order whatever the batch,
+    ``lowering._mean_hw``), and the photonic GEMM's integer products are
+    exact in any order,
+    so each shard's logits are the rows of the one-device forward, bit
+    for bit.  (An EXACT-backend GEMM takes no scale and is run as it is.)
+    """
+    graph = cnn_mod.as_graph(lowering, plan=plan)
+    pin = _pins(cfg, xs)
+    shards = [_Shard(p, x, graph, plan, cfg, impl, pin)
+              for p, x in zip(params, xs)]
+    amax = None
+    for _ in range(len(graph.gemm_nodes) + 1):
+        local = []
+        for sh, x in zip(shards, xs):
+            with _on(x.device):
+                local.append(sh.segment(
+                    None if amax is None else amax.to(x.device)))
+        amax = _batch_amax(local) if local[0] is not None else None
+    return [sh.logits for sh in shards]
+
+
+def _pins(cfg: PhotonicConfig, xs: Sequence[torch.Tensor]) -> bool:
+    return cfg.backend != Backend.EXACT and len(xs) > 1
+
+
 def lowering_fingerprint(lowering) -> str:
     """Content address of a lowered network structure (not its weights),
     as the reference computes it: op graphs hash every node field; legacy
@@ -260,18 +358,71 @@ def lowering_fingerprint(lowering) -> str:
 
 @dataclasses.dataclass
 class _Captured:
-    """One captured forward: its graph, the static buffers it reads and
-    writes, and the lock that serializes copy-in, replay and clone-out."""
-    graph: "torch.cuda.CUDAGraph"
-    x: torch.Tensor
-    noise: Optional[List[torch.Tensor]]
-    outs: tuple
+    """One captured forward: ``replay()`` runs it, reading the static
+    input buffers ``static`` and rewriting the static outputs ``outs``;
+    ``lock`` serializes copy-in, replay and clone-out, and ``done`` holds
+    the last clone-out's event on each device."""
+    replay: Callable[[], None]
+    static: List[torch.Tensor]
+    outs: object
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
-    done: Optional["torch.cuda.Event"] = None
+    done: Dict[torch.device, "torch.cuda.Event"] = dataclasses.field(
+        default_factory=dict)
 
 
 # Graphs kept per compiled wrapper (one per input shape and parameter set).
 _GRAPHS_MAX = 8
+
+
+def _params_key(params: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
+                 for name, t in sorted(params.items()))
+
+
+def _clone(outs):
+    if isinstance(outs, torch.Tensor):
+        return outs.clone()
+    return type(outs)(_clone(o) for o in outs)
+
+
+class _GraphTable:
+    """A compiled wrapper's captured forwards by key, LRU-bounded
+    (``_GRAPHS_MAX``; evicting one frees its graphs and their pools)."""
+
+    def __init__(self) -> None:
+        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def run(self, key: tuple, inputs: Sequence[torch.Tensor],
+            capture: Callable[[], _Captured]):
+        """Copy ``inputs`` into the entry's static buffers, replay, and
+        return clones of its static outputs; a new key is captured first
+        (``capture()``, counted by ``trace_count``)."""
+        global _TRACE_COUNT
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = capture()
+                with _TRACE_LOCK:
+                    _TRACE_COUNT += 1
+                self._graphs[key] = entry
+                while len(self._graphs) > _GRAPHS_MAX:
+                    self._graphs.popitem(last=False)
+            else:
+                self._graphs.move_to_end(key)
+        devices = {t.device for t in entry.static}
+        with entry.lock:
+            for d in devices:                # the last caller's clone-out
+                if d in entry.done:
+                    torch.cuda.current_stream(d).wait_event(entry.done[d])
+            for buf, t in zip(entry.static, inputs):
+                buf.copy_(t)
+            entry.replay()
+            outs = _clone(entry.outs)
+            for d in devices:
+                entry.done[d] = torch.cuda.Event()
+                entry.done[d].record(torch.cuda.current_stream(d))
+        return outs
 
 
 class CompiledForward:
@@ -302,61 +453,49 @@ class CompiledForward:
         self._body = functools.partial(
             forward_fn, lowering=lowering, plan=plan, cfg=cfg, impl=impl,
             collect_activations=collect_activations)
-        self._graphs: "OrderedDict[tuple, _Captured]" = OrderedDict()
-        self._lock = threading.Lock()
+        self._graphs = _GraphTable()
 
     def __call__(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
                  seed: Optional[int] = None):
         noise = draw_noise(seed, self.plan, self.cfg, x.device)
         if x.device.type != "cuda":
             return self._body(params, x, noise)
-        key = (tuple(x.shape), x.dtype, x.device,
-               tuple((name, t.data_ptr(), tuple(t.shape), t.dtype)
-                     for name, t in sorted(params.items())))
-        with self._lock:
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = self._capture(params, x, noise)
-                self._graphs[key] = entry
-                while len(self._graphs) > _GRAPHS_MAX:
-                    self._graphs.popitem(last=False)
-            else:
-                self._graphs.move_to_end(key)
-        stream = torch.cuda.current_stream(x.device)
-        with entry.lock:
-            if entry.done is not None:       # the last caller's clone-out
-                stream.wait_event(entry.done)
-            entry.x.copy_(x)
-            for buf, draw in zip(entry.noise or (), noise or ()):
-                buf.copy_(draw)
-            entry.graph.replay()
-            logits, fingerprints, acts = (
-                entry.outs[0].clone(), entry.outs[1].clone(),
-                tuple(a.clone() for a in entry.outs[2]))
-            entry.done = torch.cuda.Event()
-            entry.done.record(stream)
-        return logits, fingerprints, acts
+        key = (tuple(x.shape), x.dtype, x.device, _params_key(params))
+        return self._graphs.run(key, [x, *(noise or ())],
+                                lambda: self._capture(params, x, noise))
 
     def _capture(self, params, x, noise) -> _Captured:
-        global _TRACE_COUNT
         static_x = x.clone()
         static_noise = (None if noise is None
                         else [n.clone() for n in noise])
         graph, outs = cuda_graph.capture(
             lambda: self._body(params, static_x, static_noise), x.device)
-        with _TRACE_LOCK:
-            _TRACE_COUNT += 1
-        return _Captured(graph, static_x, static_noise, outs)
+        return _Captured(graph.replay, [static_x, *(static_noise or ())],
+                         outs)
 
 
 # Compiled-wrapper memo: (lowering fp, per-layer plan cache keys, cfg,
-# impl, collect) -> CompiledForward, the reference's key.  LRU-bounded as
-# the reference's is (evicting a wrapper frees its graphs and their
-# pools).  All access goes through _FORWARD_LOCK: the serving front-end
-# calls compiled_forward from concurrent request threads.
-_FORWARD_CACHE: "OrderedDict[tuple, CompiledForward]" = OrderedDict()
+# impl, collect) -> CompiledForward, the reference's key; the sharded
+# wrappers share it under keys of their own.  LRU-bounded as the
+# reference's is (evicting a wrapper frees its graphs and their pools).
+# All access goes through _FORWARD_LOCK: the serving front-end builds
+# wrappers from concurrent request threads.
+_FORWARD_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
 _FORWARD_CACHE_MAX = 256
 _FORWARD_LOCK = threading.RLock()
+
+
+def _memoized(memo_key: tuple, make: Callable[[], object]):
+    with _FORWARD_LOCK:
+        fn = _FORWARD_CACHE.get(memo_key)
+        if fn is None:
+            fn = make()
+            _FORWARD_CACHE[memo_key] = fn
+            while len(_FORWARD_CACHE) > _FORWARD_CACHE_MAX:
+                _FORWARD_CACHE.popitem(last=False)
+        else:
+            _FORWARD_CACHE.move_to_end(memo_key)
+        return fn
 
 
 def compiled_forward(plan: CnnPlan, cfg: PhotonicConfig,
@@ -375,17 +514,82 @@ def compiled_forward(plan: CnnPlan, cfg: PhotonicConfig,
     memo_key = (lowering_fingerprint(lowering),
                 tuple(p.cache_key for p in plan.layers), cfg, impl,
                 collect_activations)
-    with _FORWARD_LOCK:
-        fn = _FORWARD_CACHE.get(memo_key)
-        if fn is None:
-            fn = CompiledForward(lowering, plan, cfg, impl,
-                                 collect_activations)
-            _FORWARD_CACHE[memo_key] = fn
-            while len(_FORWARD_CACHE) > _FORWARD_CACHE_MAX:
-                _FORWARD_CACHE.popitem(last=False)
-        else:
-            _FORWARD_CACHE.move_to_end(memo_key)
-        return fn
+    return _memoized(memo_key, lambda: CompiledForward(
+        lowering, plan, cfg, impl, collect_activations))
+
+
+class ShardedForward:
+    """``fn(params_list, xs) -> [logits per shard]`` for one (lowering,
+    plan, cfg, impl): ``forward_shards_fn``, the data-parallel serving
+    forward (noise off); built by ``sharded_forward``.
+
+    On CUDA devices, the first call for a set of shapes, devices and
+    parameters captures each shard's forward into CUDA graphs of its own
+    on its own device, one graph per segment between two GEMMs
+    (``_Shard``), in one memory pool a shard.  A call replays the
+    segments in lockstep; between two segments it reduces the shards'
+    |max| and copies it into each shard's static scale buffer, a few
+    scalar copies a GEMM, whether the entries share one card or not.
+    ``trace_count`` counts one capture per key.  On the CPU it runs the
+    eager body."""
+
+    def __init__(self, lowering, plan: CnnPlan, cfg: PhotonicConfig,
+                 impl: str) -> None:
+        if cfg.noise_enabled:
+            raise ValueError("the sharded forward runs noise off")
+        self._graph = cnn_mod.as_graph(lowering, plan=plan)
+        self._plan, self._cfg, self._impl = plan, cfg, impl
+        self._body = functools.partial(forward_shards_fn, lowering=lowering,
+                                       plan=plan, cfg=cfg, impl=impl)
+        self._graphs = _GraphTable()
+
+    def __call__(self, params: Sequence[Dict[str, torch.Tensor]],
+                 xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        if any(x.device.type != "cuda" for x in xs):
+            return self._body(params, xs)
+        key = (tuple((tuple(x.shape), x.dtype, x.device) for x in xs),
+               tuple(_params_key(p) for p in params))
+        return self._graphs.run(key, xs, lambda: self._capture(params, xs))
+
+    def _capture(self, params, xs) -> _Captured:
+        self._body(params, xs)    # first-use costs stay out of the captures
+        pin = _pins(self._cfg, xs)
+        n_seg = len(self._graph.gemm_nodes) + 1
+        static = [x.clone() for x in xs]
+        scales = [torch.zeros((), dtype=x.dtype, device=x.device)
+                  for x in xs]
+        graphs, amaxes, shards = [], [], []
+        for p, x, scale in zip(params, static, scales):
+            sh = _Shard(p, x, self._graph, self._plan, self._cfg,
+                        self._impl, pin)
+            segs = cuda_graph.capture_all(
+                [lambda: sh.segment(scale)] * n_seg, x.device)
+            graphs.append([g for g, _ in segs])
+            amaxes.append([a for _, a in segs])
+            shards.append(sh)
+
+        def replay() -> None:
+            for s in range(n_seg):
+                for g, x in zip(graphs, static):
+                    with _on(x.device):
+                        g[s].replay()
+                if pin and s < n_seg - 1:
+                    amax = _batch_amax([a[s] for a in amaxes])
+                    for scale in scales:
+                        scale.copy_(amax)
+        return _Captured(replay, static, [sh.logits for sh in shards])
+
+
+def sharded_forward(plan: CnnPlan, cfg: PhotonicConfig,
+                    lowering: Optional[Lowering] = None,
+                    impl: str = "auto") -> ShardedForward:
+    """The data-parallel serving entry, memoized as ``compiled_forward``
+    is (its own key space)."""
+    lowering = _norm_lowering(lowering)
+    memo_key = ("shards", lowering_fingerprint(lowering),
+                tuple(p.cache_key for p in plan.layers), cfg, impl)
+    return _memoized(memo_key,
+                     lambda: ShardedForward(lowering, plan, cfg, impl))
 
 
 def compile_cache_stats() -> dict:

@@ -21,6 +21,19 @@
     from a queue into bucketed batches under a max-delay knob, resolving
     each request's Future with its row of the batched logits;
 
+  * a **data-parallel path** over several device entries
+    (``data_parallel=True, devices=[...]``, noise off): a bucket that the
+    entries divide is split over them, shard i on entry i with its own
+    parameter replica, and the shards walk the network in lockstep
+    (``executor.sharded_forward``) so that every photonic GEMM quantizes
+    with the whole batch's scale — the reference's GSPMD forward makes
+    that max an all-reduce; the logits are concatenated back on the
+    engine's device, BITWISE equal to one device's.  On the card each
+    entry has CUDA graphs of its own for a bucket, one a segment between
+    two GEMMs, and the batch's scale is reduced between segments.  The
+    entries may repeat (replicas on the same card; the reference's Mesh
+    refuses a repeated device, ROADMAP D11);
+
   * **serving metrics** — p50/p99 request latency, sustained throughput,
     padding-overhead fraction, plan-cache and compile-cache stats, and
     the photonic model's energy accounting of the served stream (modeled
@@ -36,8 +49,8 @@ Noise: a noise-enabled engine requires a root seed per ``infer`` call
 (per-chunk seeds are folded in, per-layer seeds inside the forward; the
 noise is drawn outside the graph into its static buffers).
 
-Not ported yet: the reference's data-parallel path over several devices
-(ROADMAP A9).
+The data-parallel path is noise-off only, as the reference's: per-shard
+noise streams would not reproduce the single-device stream.
 """
 from __future__ import annotations
 
@@ -93,7 +106,8 @@ def _percentile(sorted_vals: Sequence[float], q: float) -> float:
 
 
 class ServingEngine:
-    """Bucketed, warmed-up CNN serving on one device.
+    """Bucketed, warmed-up CNN serving on one device, or data-parallel
+    over several device entries.
 
     One engine serves one network (lowering + params) on one accelerator
     config.  Entry points are thread-safe: concurrent request threads
@@ -112,7 +126,10 @@ class ServingEngine:
         requests are chunked into top-bucket pieces.
     impl : 'auto' | 'kernel' | 'ref' (ops.photonic_matmul).
     plan_cache : shared PlanCache (fresh one per engine by default).
-    data_parallel : not ported yet — True raises.
+    data_parallel : split a bucket over ``devices`` (noise off; True
+        with noise on raises).  Takes effect with more than one entry.
+    devices : the data-parallel entries (default: every visible CUDA card,
+        or ``[device]`` off the card); an entry may repeat.
     device : where to serve — the CUDA card unless the caller names
         another device (``device="cpu"`` runs the plain versions).
     """
@@ -122,11 +139,8 @@ class ServingEngine:
                  in_hw=16, max_batch: int = 32, impl: str = "auto",
                  objective: str = "latency",
                  plan_cache: Optional[pc.PlanCache] = None,
-                 data_parallel: bool = False, device=None) -> None:
-        if data_parallel:
-            raise ValueError(
-                "data_parallel serving is not ported to PyTorch yet — "
-                "serve on one device (data_parallel=False)")
+                 data_parallel: bool = False, device=None,
+                 devices: Optional[Sequence] = None) -> None:
         if cfg is None:
             if not isinstance(acc, hw.OperatingPoint):
                 raise ValueError(
@@ -161,6 +175,25 @@ class ServingEngine:
                                             self._lowering, impl)
                      for b in self.buckets}
 
+        if devices is None:
+            devices = ([torch.device("cuda", i)
+                        for i in range(torch.cuda.device_count())]
+                       if self.device.type == "cuda" else [self.device])
+        self.devices = [resolve_device(d) for d in devices]
+        self.data_parallel = bool(data_parallel) and len(self.devices) > 1
+        if bool(data_parallel) and cfg.noise_enabled:
+            raise ValueError(
+                "data_parallel serving requires noise_enabled=False — "
+                "per-shard noise streams would not reproduce the "
+                "single-device stream (run noisy inference single-device)")
+        if self.data_parallel:
+            self._params_dp = [{k: v.to(d, copy=True)
+                                for k, v in self._params.items()}
+                               for d in self.devices]
+            self._dp_fns = {b: ex.sharded_forward(self.plans[b], cfg,
+                                                  self._lowering, impl)
+                            for b in self.buckets if self._dp_bucket(b)}
+
         self._lock = threading.Lock()
         self._latencies: List[float] = []
         self._requests = 0
@@ -185,13 +218,24 @@ class ServingEngine:
         return self.buckets[-1]
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {self.device, *(self.devices if self.data_parallel
+                                 else ())}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def _dp_bucket(self, bucket: int) -> bool:
+        return self.data_parallel and bucket % len(self.devices) == 0
 
     def _run_bucket(self, xb: torch.Tensor, seed: Optional[int],
                     bucket: int) -> torch.Tensor:
         traces0 = ex.trace_count() if self._warm else 0
-        logits, _, _ = self._fns[bucket](self._params, xb, seed)
+        if self._dp_bucket(bucket):
+            xs = [c.to(d) for c, d in zip(xb.chunk(len(self.devices)),
+                                          self.devices)]
+            logits = torch.cat([o.to(self.device) for o in
+                                self._dp_fns[bucket](self._params_dp, xs)])
+        else:
+            logits, _, _ = self._fns[bucket](self._params, xb, seed)
         if self._warm:
             # Engine-local retrace accounting: only captures across THIS
             # engine's calls count, not another engine's warmup.
@@ -320,8 +364,8 @@ class ServingEngine:
                 "sustained_ips": (self._blocked_images / self._busy_s
                                   if self._busy_s > 0 else 0.0),
                 "buckets": list(self.buckets),
-                "data_parallel": False,
-                "n_devices": 1,
+                "data_parallel": self.data_parallel,
+                "n_devices": len(self.devices),
                 "device": str(self.device),
                 "warmed_up": warm,
                 # Photonic-model energy of the served stream (not the

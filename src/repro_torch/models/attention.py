@@ -8,10 +8,11 @@ whisper's non-causal encoder self-attention without RoPE and its
 cross-attention (``kv_source``), and DeepSeek v2/v3's MLA: a low-rank
 compressed KV cache, per-head K and V materialised over the prompt, and
 a decode step that scores against the compressed cache with the
-absorbed weights.  The reference's ``flash_decode_gqa`` and
-``decode_axes`` (a ``shard_map`` flash-decode over a device mesh,
-ROADMAP A9) are left out — the port runs on one device, where the
-reference itself takes the grouped einsum.
+absorbed weights.  On a mesh (``dist``, a ``moe.DistCtx``) a GQA decode
+step takes the reference's flash-decode (``flash_decode_gqa``, layout
+``decode_axes``), a distributed softmax over the cache's slots split
+over the model axis (with LOCAL, as in the reference, the grouped
+einsum).
 
 KV caches are explicit dicts:
   GQA:  {"k": (B, S, KVH, HD), "v": ..., "pos": (B, S) int32}
@@ -55,6 +56,7 @@ from repro_torch.configs.base import MLAConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as shd
 
 NEG_INF = -2.0e38
 
@@ -233,6 +235,77 @@ def _flash_self_attention(q, k, v, spec: AttnSpec, impl: str):
     return out
 
 
+def decode_axes(dist, batch: int, slots: int):
+    """(batch_axes, seq_axes) for the flash-decode layout, or (None, None)
+    if the cell can't use it (no mesh, or an indivisible slot count).
+    ``batch``: the global batch; when the data axes divide it, batch goes
+    over them and slots over 'model', else slots over every axis."""
+    if dist is None or getattr(dist, "mesh", None) is None:
+        return None, None
+    dsize = shd.axes_size(dist.mesh, dist.data_axes)
+    if batch % dsize == 0:
+        batch_axes = tuple(dist.data_axes)
+        seq_axes = (dist.model_axis,)
+    else:
+        batch_axes = ()
+        seq_axes = tuple(dist.data_axes) + (dist.model_axis,)
+    if slots % shd.axes_size(dist.mesh, seq_axes) != 0:
+        return None, None
+    return batch_axes, seq_axes
+
+
+def _global_batch(dist, b: int) -> int:
+    """The global decode batch of a rank holding ``b`` rows: the port
+    splits a decode batch over the data axes."""
+    return b * shd.axes_size(dist.mesh, dist.data_axes)
+
+
+def flash_decode_gqa(q, k, v, pos, q_pos, spec: AttnSpec,
+                     dist) -> torch.Tensor:
+    """The reference's flash-decode (its ``shard_map`` body, run by every
+    rank): each rank attends over its slots of the cache, and only the
+    per-head (max, sum, weighted V) statistics cross ranks — an
+    ``all_reduce(MAX)`` of the max, then ``all_reduce(SUM)`` of the
+    rescaled sum and weighted V over the sequence group.  P is cast to the
+    cache's dtype before P V (float32 accumulation), as in the reference.
+
+    q: (B, 1, H, hd), the real heads of this rank's batch rows (the
+    batch split over the data axes: ``_global_batch``); k / v: (B, S,
+    KVH, hd) and pos (B, S): the whole cache of those rows, whose slots
+    [i S/n, (i+1) S/n) this rank reads (i its index over the sequence
+    axes, n their size: ``sharding.local_shard``); q_pos: (B, 1).  Plain
+    PyTorch: the reference computes this with XLA ops, no Pallas kernel.
+    """
+    b, _, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    _, seq_axes = decode_axes(dist, _global_batch(dist, b), k.shape[1])
+    if seq_axes is None:
+        raise ValueError(f"no flash-decode layout for {b} rows and "
+                         f"{k.shape[1]} slots on this mesh")
+    k_l, v_l, pos_l = (shd.local_shard(t, (None, seq_axes), dist.mesh)
+                       for t in (k, v, pos))
+    qg = q.reshape(b, 1, kvh, g, hd)
+    scores = _f32_einsum("bqkgd,bskd->bkgqs", qg, k_l) * (hd ** -0.5)
+    bias = _mask_bias(q_pos, pos_l, spec.window, spec.causal)
+    scores = scores + bias[:, None, None]
+    m_loc = scores.amax(-1)                                # (b,kvh,g,1)
+    p = torch.exp(scores - m_loc[..., None])
+    l_loc = p.sum(-1)
+    o_loc = _f32_einsum("bkgqs,bskd->bkgqd", p.to(v_l.dtype), v_l)
+    group = shd.axes_group(dist.mesh, seq_axes)
+    m_g = m_loc.clone()
+    torch.distributed.all_reduce(m_g, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    c = torch.exp(m_loc - m_g)
+    l_g = l_loc * c
+    o_g = o_loc * c[..., None]
+    torch.distributed.all_reduce(l_g, group=group)
+    torch.distributed.all_reduce(o_g, group=group)
+    out = o_g / torch.clamp_min(l_g, 1e-30)[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               spec: AttnSpec, ctx: L.PhotonicCtx = L.EXACT_CTX,
               name: str = "attn",
@@ -240,7 +313,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cache_index=None,
               kv_source: Optional[torch.Tensor] = None,
               kv_positions: Optional[torch.Tensor] = None,
-              attn_impl: str = "auto",
+              attn_impl: str = "auto", dist=None,
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Self- or cross-attention.
 
@@ -251,6 +324,8 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     kv_source                 -> cross-attention (no cache, no rope).
     attn_impl                 -> 'auto' | 'kernel' | 'ref' | 'dense' (see
                                  the module docstring).
+    dist                      -> a moe.DistCtx: on a mesh, a GQA decode
+                                 step takes ``flash_decode_gqa``.
     Returns (out, updated_cache_or_None).
     """
     if attn_impl not in ATTN_IMPLS:
@@ -307,6 +382,15 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cache["pos"].index_copy_(1, slot, positions.to(torch.int32))
             new_cache = cache
             k, v = cache["k"], cache["v"]
+            if dist is not None and dist.mesh is not None and decode_axes(
+                    dist, _global_batch(dist, b), slots)[1] is not None:
+                fo = flash_decode_gqa(q[:, :, :spec.num_heads], k, v,
+                                      cache["pos"], positions, spec, dist)
+                if h != spec.num_heads:
+                    fo = torch.nn.functional.pad(
+                        fo, (0, 0, 0, h - spec.num_heads))
+                return L.dense(params["wo"], fo.reshape(b, s, h * hd), ctx,
+                               f"{name}.wo"), new_cache
             mask = (positions, cache["pos"], spec.window, spec.causal)
     if attn_impl != "dense" and s > 1 and kv_source is None and \
             cache_index is None:

@@ -50,8 +50,17 @@ def _spec(cfg: ArchConfig, causal: bool, use_rope: bool = False
 def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
     """Seeded params of ``cfg.dtype`` on ``device`` (the CUDA card unless
     named)."""
-    maker = L.ParamMaker(seed, dtype=getattr(torch, cfg.dtype),
-                         device=resolve_device(device))
+    return _build_params(cfg, L.ParamMaker(seed, dtype=getattr(torch,
+                                                               cfg.dtype),
+                                           device=resolve_device(device)))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The params' tree of logical-axis tuples."""
+    return _build_params(cfg, L.ParamMaker(None))
+
+
+def _build_params(cfg: ArchConfig, maker: L.ParamMaker) -> dict:
     d = cfg.d_model
 
     def enc_block(mk, nm):

@@ -9,8 +9,10 @@ order of construction or on the device.  A parameter with a leading
 expert axis (``EXPERT``) draws expert ``e`` from ``fold_seed`` of that
 seed and ``e``, the experts on threads.  Draws are made on the CPU and
 moved to ``device``.  On the ``meta`` device nothing is drawn: the tree
-holds its shapes and dtypes only (the reference's abstract mode; its spec
-mode is left out, nothing in the port lowers a model abstractly).
+holds its shapes and dtypes only (the reference's abstract mode).
+``ParamMaker(None)`` is the reference's spec mode: each ``param`` returns
+its tuple of logical axes, so one code path builds the params and their
+spec tree (``parallel/sharding.py`` maps the axes to a mesh).
 
 ``dense`` is the paper integration point: every projection in the zoo goes
 through it, and an active ``PhotonicCtx`` reroutes the matmul through the
@@ -29,8 +31,7 @@ import torch
 from repro_torch.core.photonic_gemm import fold_seed, generator_for
 from repro_torch.core.types import Backend, PhotonicConfig
 
-# Logical axis names (the reference maps them to mesh axes; the port runs
-# on one device and keeps them only so make_* signatures match).
+# Logical axis names (parallel/sharding.RULES maps them to mesh axes).
 EMBED = "embed"
 MLP = "mlp"
 HEADS = "heads"
@@ -38,6 +39,8 @@ KV_HEADS = "kv_heads"
 VOCAB = "vocab"
 SSM_INNER = "ssm_inner"
 EXPERT = "expert"
+STACK = "stack"      # a stacked group's leading layer axis
+NONE = None
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -66,18 +69,25 @@ def name_seed(seed: int, name: str) -> int:
 
 
 class ParamMaker:
-    """Builds seeded param tensors of ``dtype`` on ``device``."""
+    """Builds seeded param tensors of ``dtype`` on ``device``, or (seed
+    None) each param's tuple of logical axes."""
 
-    def __init__(self, seed: int, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, seed: Optional[int],
+                 dtype: torch.dtype = torch.bfloat16,
                  device: torch.device = torch.device("cpu")):
-        self.seed = int(seed)
+        self.seed = None if seed is None else int(seed)
         self.dtype = dtype
         self.device = device
 
+    @property
+    def spec_mode(self) -> bool:
+        return self.seed is None
+
     def param(self, name: str, shape: Sequence[int], axes: Tuple,
-              init: str = "normal",
-              scale: Optional[float] = None) -> torch.Tensor:
+              init: str = "normal", scale: Optional[float] = None):
         assert len(axes) == len(shape), (name, shape, axes)
+        if self.spec_mode:
+            return axes
         shape = tuple(shape)
         if self.device.type == "meta" or init == "zeros":
             return torch.zeros(shape, dtype=self.dtype, device=self.device)

@@ -32,7 +32,8 @@ Node kinds:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import (Callable, Dict, Generator, List, Mapping, Optional,
+                    Tuple)
 
 import math
 
@@ -504,9 +505,27 @@ def graph_gemms(graph: OpGraph, in_hw,
 # ---------------------------------------------------------------------------
 # Forward walkers
 # ---------------------------------------------------------------------------
+def _mean_hw(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W: a pairwise tree of elementwise adds over the
+    positions, then a true division.  Each image's sum is taken in the
+    same order whatever the batch; PyTorch's reductions on the card pick
+    their order from the whole tensor's shape, so an image's mean would
+    move by an ulp with the batch it is served in (a data-parallel shard
+    against one device)."""
+    n, h, w, c = x.shape
+    t = x.reshape(n, h * w, c)
+    while t.shape[1] > 1:
+        half = t.shape[1] // 2
+        pairs = t[:, :half] + t[:, half:2 * half]
+        t = torch.cat([pairs, t[:, 2 * half:]], 1) if t.shape[1] % 2 \
+            else pairs
+    return t.reshape(n, 1, 1, c) / torch.full((), float(h * w),
+                                              dtype=x.dtype, device=x.device)
+
+
 def _apply_pool(node: OpNode, x: torch.Tensor) -> torch.Tensor:
     if node.pool == "global":
-        return x.mean(dim=(1, 2), keepdim=True)
+        return _mean_hw(x)
     s, st = node.pool_size, node.pool_stride
     oh, ow = _pool_out(node, x.shape[1], x.shape[2])
     fill = float("-inf") if node.pool == "max" else 0.0
@@ -550,16 +569,14 @@ def _apply_glue(node: OpNode, a: torch.Tensor,
     raise ValueError(f"unknown op {node.op!r}")    # pragma: no cover
 
 
-def graph_forward(params: dict, x: torch.Tensor, graph: OpGraph,
-                  mm: Callable[[torch.Tensor, torch.Tensor, int, OpNode],
-                               torch.Tensor]
-                  ) -> Dict[str, torch.Tensor]:
-    """Walk the graph; returns every node's output by name.
-
-    ``mm(cols2d, weight, gemm_index, node)`` runs one lowered GEMM — the
-    executor plugs the photonic kernel + per-layer plan/noise generator in
-    here; ``graph_apply`` plugs a plain (or photonic-reference) matmul.
-    """
+def graph_steps(params: dict, x: torch.Tensor, graph: OpGraph
+                ) -> Generator[Tuple[torch.Tensor, torch.Tensor, int, OpNode],
+                               torch.Tensor, Dict[str, torch.Tensor]]:
+    """``graph_forward`` a GEMM at a time: a generator that yields
+    ``(cols2d, weight, gemm_index, node)`` at every GEMM node, takes the
+    GEMM's output back by ``send`` and returns every node's output by
+    name.  The data-parallel executor steps one per shard, so that a
+    GEMM can see every shard's operand before any of them runs."""
     n = x.shape[0]
     vals: Dict[str, torch.Tensor] = {}
     gi = 0
@@ -574,11 +591,11 @@ def graph_forward(params: dict, x: torch.Tensor, graph: OpGraph,
                    if node.op == "depthwise_conv" else wgt)
             cols, (oh, ow) = im2col(a, node.kh, node.kw, node.stride,
                                     node.padding)
-            out = mm(cols.reshape(-1, cols.shape[-1]), w2d, gi, node)
+            out = yield cols.reshape(-1, cols.shape[-1]), w2d, gi, node
             y = out.reshape(n, oh, ow, w2d.shape[-1])
             gi += 1
         elif node.op == "fc":
-            y = mm(a.reshape(n, -1), params[node.name], gi, node)
+            y = yield a.reshape(n, -1), params[node.name], gi, node
             gi += 1
         else:
             y = _apply_glue(node, a, vals)
@@ -586,6 +603,25 @@ def graph_forward(params: dict, x: torch.Tensor, graph: OpGraph,
             y = torch.relu(y)
         vals[node.name] = y
     return vals
+
+
+def graph_forward(params: dict, x: torch.Tensor, graph: OpGraph,
+                  mm: Callable[[torch.Tensor, torch.Tensor, int, OpNode],
+                               torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Walk the graph; returns every node's output by name.
+
+    ``mm(cols2d, weight, gemm_index, node)`` runs one lowered GEMM — the
+    executor plugs the photonic kernel + per-layer plan/noise generator in
+    here; ``graph_apply`` plugs a plain (or photonic-reference) matmul.
+    """
+    steps = graph_steps(params, x, graph)
+    try:
+        gemm = next(steps)
+        while True:
+            gemm = steps.send(mm(*gemm))
+    except StopIteration as done:
+        return done.value
 
 
 def graph_apply(params: dict, x: torch.Tensor, graph: OpGraph,

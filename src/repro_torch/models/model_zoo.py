@@ -4,10 +4,11 @@
 Dispatches on ``cfg.family``: 'audio' -> ``encdec`` (whisper), everything
 else -> ``transformer``.
 
-    init_params(cfg, seed, device)            -- seeded params
+    init_params(cfg, seed, device) / param_specs(cfg)
     loss_fn(params, batch, cfg, ...)          -- next-token CE (training)
     init_caches(cfg, batch, max_len, dtype, device)
     prefill_fn / decode_fn                    -- serving
+    input_specs(cfg, shape) / cache_specs(cfg, shape)  -- meta stand-ins
     params_from_jax(tree, device)             -- a reference param tree
     adam_state_from_jax(state, device)        -- a reference AdamState
 
@@ -22,7 +23,14 @@ v3's MTP params) and audio (whisper).  Batches are dicts: {"tokens"}
 num_image_tokens, vision_embed_dim) for vlm) — the modality frontends are
 stubs, as in the reference, so frames and patches arrive as precomputed
 features.  The serving state is {"layers": caches} (+ "enc_out", the
-encoder's output, for audio).  ``params_from_jax`` carries any reference
+encoder's output, for audio).  ``loss_fn``, ``prefill_fn`` and
+``decode_fn`` take the reference's ``dist`` (a ``moe.DistCtx``, keyword,
+default ``LOCAL``); on a mesh whose 'model' axis divides the vocabulary
+the CE is vocab-sharded (``parallel/sharded_ce.py``).  ``param_specs``,
+``input_specs`` and ``cache_specs`` are what ``parallel/sharding.py`` and
+``launch/dryrun.py`` read: the spec tree of logical axes, and ``meta``
+tensors in place of the reference's ``ShapeDtypeStruct``.
+``params_from_jax`` carries any reference
 tree across leaf by leaf: attention's QKV biases and its
 ``head_pad``-padded ``wq`` / ``wo``, the (E, D, F) expert tensors and
 v3's ``mtp`` subtree as they are.
@@ -34,11 +42,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RunShape
 from repro_torch.core.types import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, transformer
+from repro_torch.models import moe as M
 from repro_torch.optim.optimizer import AdamState
+from repro_torch.parallel import sharded_ce
 
 WHISPER_FRAME_FEAT = 80   # log-mel bins fed to the (stubbed) conv frontend
 
@@ -56,17 +66,30 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
     return transformer.init_params(cfg, seed, device)
 
 
+def param_specs(cfg: ArchConfig) -> dict:
+    """The params' tree of logical-axis tuples."""
+    if cfg.family == "audio":
+        return encdec.param_specs(cfg)
+    return transformer.param_specs(cfg)
+
+
+def _token_xent(logits: torch.Tensor, targets: torch.Tensor
+                ) -> torch.Tensor:
+    """Per-position next-token cross-entropy, in float32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
 def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross-entropy over every position, in float32."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return -torch.mean(ll)
+    return torch.mean(_token_xent(logits, targets))
 
 
 def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             ctx: L.PhotonicCtx = L.EXACT_CTX, remat: bool = True,
             ssm_impl: str = "auto", attn_impl: str = "auto",
-            mtp_weight: float = 0.0) -> torch.Tensor:
+            mtp_weight: float = 0.0,
+            dist: M.DistCtx = M.LOCAL) -> torch.Tensor:
     """Next-token CE (+ optional DeepSeek-V3 MTP auxiliary loss), a 0-d
     float32 tensor.
 
@@ -79,10 +102,11 @@ def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     (``transformer.mtp_hidden``) against the targets shifted by one.
     Under grad the SSD scan and attention resolve ``"auto"`` to their
     plain, differentiable routes (``kernels.ops.resolve_impl``); photonic
-    GEMMs keep the TAOM kernel (straight-through backward).  The
-    reference's ``dist`` argument and its vocab-sharded CE
-    (``parallel/sharded_ce.py``) wait for distribution (ROADMAP A9): the
-    port computes the CE on one device."""
+    GEMMs keep the TAOM kernel (straight-through backward).  On a mesh
+    (``dist``) the batch is this rank's rows and the loss their share of
+    the global mean; the CE is vocab-sharded when 'model' divides the
+    vocabulary (``sharded_ce.supports``), in float32, as in the
+    reference."""
     _check_supported(cfg)
     _check_device(params, batch["tokens"])
     if cfg.family == "audio":
@@ -90,16 +114,25 @@ def loss_fn(params: dict, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                                 cfg, ctx, attn_impl)
         return _xent(logits, batch["targets"])
     table = transformer._head(params, cfg)["table"]
+    use_sharded = sharded_ce.supports(cfg.vocab_size, dist)
     hidden = transformer.forward(
         params, batch["tokens"], cfg, ctx, remat=remat, ssm_impl=ssm_impl,
         attn_impl=attn_impl, prefix_embeds=batch.get("patches"),
-        return_hidden=True)
-    loss = _xent(hidden @ table.T, batch["targets"])
+        return_hidden=True, dist=dist)
+
+    def ce(h, targets):
+        if use_sharded:
+            return sharded_ce.sharded_xent(table, h, targets, dist)
+        if dist.mesh is None:
+            return _xent(h @ table.T, targets)
+        return sharded_ce.global_mean(_token_xent(h @ table.T, targets),
+                                      dist)
+
+    loss = ce(hidden, batch["targets"])
     if mtp_weight > 0.0 and cfg.mtp_depth > 0:
         h_mtp = transformer.mtp_hidden(params, hidden, batch["tokens"], cfg,
-                                       ctx, attn_impl)
-        loss = loss + mtp_weight * _xent(h_mtp @ table.T,
-                                         batch["targets"][:, 1:])
+                                       ctx, attn_impl, dist)
+        loss = loss + mtp_weight * ce(h_mtp, batch["targets"][:, 1:])
     return loss
 
 
@@ -119,7 +152,8 @@ def _check_device(params: dict, tokens: torch.Tensor) -> None:
 
 def prefill_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
                caches, ctx: L.PhotonicCtx = L.EXACT_CTX,
-               ssm_impl: str = "auto", attn_impl: str = "auto"):
+               ssm_impl: str = "auto", attn_impl: str = "auto",
+               dist: M.DistCtx = M.LOCAL):
     """Prefill on the params' device.  ssm_impl: the SSD scan's
     ('auto' | 'kernel' | 'ref', see ``kernels.ops.ssd_scan``); attn_impl:
     the prompt's self-attention ('auto' | 'kernel' | 'ref' for the flash
@@ -136,13 +170,13 @@ def prefill_fn(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
         return logits, {"layers": caches, "enc_out": enc_out}
     logits, caches = transformer.prefill(
         params, batch["tokens"], cfg, caches, ctx, ssm_impl, attn_impl,
-        prefix_embeds=batch.get("patches"))
+        prefix_embeds=batch.get("patches"), dist=dist)
     return logits, {"layers": caches}
 
 
 def decode_fn(params, token: torch.Tensor, index, cfg: ArchConfig,
               state, ctx: L.PhotonicCtx = L.EXACT_CTX,
-              attn_impl: str = "auto"):
+              attn_impl: str = "auto", dist: M.DistCtx = M.LOCAL):
     """One decode step on the params' device.  index: the token's
     position, a Python int or a 0-d integer tensor on that device.  The
     caches in ``state`` are updated in place (``transformer.decode_step``);
@@ -155,8 +189,49 @@ def decode_fn(params, token: torch.Tensor, index, cfg: ArchConfig,
                                             state["layers"], ctx, attn_impl)
         return logits, {**state, "layers": caches}
     logits, caches = transformer.decode_step(params, token, index, cfg,
-                                             state["layers"], ctx, attn_impl)
+                                             state["layers"], ctx, attn_impl,
+                                             dist)
     return logits, {**state, "layers": caches}
+
+
+# ---------------------------------------------------------------------------
+# Meta-device stand-ins (the dry run's input contract)
+# ---------------------------------------------------------------------------
+def input_specs(cfg: ArchConfig, shape: RunShape) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors for every model input of the step run for
+    ``shape`` (the reference's ``ShapeDtypeStruct``s): train/prefill a
+    full-sequence batch; decode one new token and the decode index (the
+    caches come from ``cache_specs``)."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, getattr(torch, cfg.dtype)
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": meta((b, s), i32)}
+        if shape.kind == "train":
+            specs["targets"] = meta((b, s), i32)
+        if cfg.family == "audio":
+            specs["frames"] = meta((b, cfg.encoder_seq, WHISPER_FRAME_FEAT),
+                                   dt)
+        if cfg.family == "vlm":
+            specs["patches"] = meta((b, cfg.num_image_tokens,
+                                     cfg.vision_embed_dim), dt)
+        return specs
+    return {"token": meta((b, 1), i32), "index": meta((), i32)}
+
+
+def cache_specs(cfg: ArchConfig, shape: RunShape) -> dict:
+    """The decode state for ``shape`` on the ``meta`` device (nothing is
+    allocated): {"layers": caches} (+ "enc_out" for audio)."""
+    dt = getattr(torch, cfg.dtype)
+    state = {"layers": init_caches(cfg, shape.global_batch, shape.seq_len,
+                                   dt, "meta")}
+    if cfg.family == "audio":
+        state["enc_out"] = torch.empty(
+            (shape.global_batch, cfg.encoder_seq, cfg.d_model), dtype=dt,
+            device="meta")
+    return state
 
 
 def _leaf_from_numpy(leaf, device: torch.device) -> torch.Tensor:

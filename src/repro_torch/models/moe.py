@@ -8,13 +8,12 @@ top-k routing under a fixed per-expert capacity.  The routed experts'
 three products are plain batched matmuls, exact under a photonic ctx, as
 in the reference (no Pallas kernel computes them there).
 
-Only the reference's single-shard branch is ported: its ``shard_map``
-expert-parallel branch and ``DistCtx`` belong to distribution (ROADMAP
-A9), so ``moe_ffn`` takes no ``dist``.  With one shard every (token,
-expert) slot is selected and the slot capacity ``round8(int(1.25 t k))``
-is at least ``t k``, so the reference's ``argsort(~sel)`` is the identity
-and slot ``i`` belongs to token ``i // k``.  What decides the result is
-kept exactly:
+``DistCtx`` says how an apply is distributed (``LOCAL``: one process).
+With one model shard every (token, expert) slot is selected and the slot
+capacity ``round8(int(1.25 t k))`` is at least ``t k``, so the
+reference's ``argsort(~sel)`` is the identity and slot ``i`` belongs to
+token ``i // k``: that route (``route`` + ``dispatch_combine``) is the
+one-shard body.  What decides the result is kept exactly:
 
   * routing (``route``): the router's product in x's dtype, then float32;
     softmax, ``top_k`` (descending, as ``jax.lax.top_k``), renormalised;
@@ -33,15 +32,48 @@ one-hot is a comparison), so a decode step with MoE layers captures in a
 CUDA graph.  ``route`` and ``dispatch_combine`` are split so that a test
 can feed the reference's routing: routing is discontinuous, and a one-ulp
 difference in the router's input can swap an expert.
+
+Expert parallelism (the reference's ``shard_map`` branch, a mesh whose
+'model' axis has n > 1 ranks): every model rank holds the activations of
+its data shard and its slice of E / n experts (``parallel/sharding.py``),
+runs ``_routed_local(..., n, my_shard)`` — the reference's per-shard body
+to the letter: the full routing, the (token, expert) slots its experts
+own, at most ``cap = min(round8(int(t k cf) // n), t k)`` of them in
+``argsort(~sel, stable)`` order, a per-expert capacity
+``round8(int(cap cf) // (E / n))`` — and the partial outputs are summed
+over the model group (``all_reduce``).  Its dispatch and combine are
+written without atomics (each token's slots added in rank order), so a
+rank's part does not depend on the order threads run in.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding as shd
+
+
+@dataclasses.dataclass(frozen=True)
+class DistCtx:
+    """How a model apply is distributed (mesh None = one process).
+    ``mesh``: a ``torch.distributed`` DeviceMesh
+    (``launch/mesh.make_local_mesh``)."""
+    mesh: Optional[object] = None
+    data_axes: tuple = ("data",)           # ("pod","data") when multi-pod
+    model_axis: str = "model"
+
+    @property
+    def model_shards(self) -> int:
+        if self.mesh is None:
+            return 1
+        return shd.axis_sizes(self.mesh)[self.model_axis]
+
+
+LOCAL = DistCtx()
 
 
 def make_moe(maker: L.ParamMaker, name: str, d_model: int,
@@ -136,18 +168,73 @@ def dispatch_combine(gate_w, up_w, down_w, x: torch.Tensor,
 
 
 def _routed_local(router_w, gate_w, up_w, down_w, x: torch.Tensor,
-                  cfg: MoEConfig) -> torch.Tensor:
-    """Routed-expert compute on one device: x (B, S, D) -> (B, S, D)."""
+                  cfg: MoEConfig, n_shards: int = 1,
+                  my_shard: int = 0) -> torch.Tensor:
+    """Routed-expert compute for ONE model shard: x (B, S, D) -> this
+    shard's partial output (zeros for tokens routed elsewhere).
+    gate/up/down: the shard's (E / n_shards, ...) slice of experts."""
     top_p, top_e = route(router_w, x.reshape(-1, x.shape[-1]), cfg)
-    return dispatch_combine(gate_w, up_w, down_w, x, top_p, top_e, cfg)
+    if n_shards == 1:
+        return dispatch_combine(gate_w, up_w, down_w, x, top_p, top_e, cfg)
+    b, s, d = x.shape
+    t, k = b * s, cfg.experts_per_token
+    e_loc = cfg.num_experts // n_shards
+    xf = x.reshape(t, d)
+
+    # --- the (token, expert) slots this shard owns, selected first ---
+    eid = top_e.reshape(t * k)
+    wgt = top_p.reshape(t * k)
+    sel = (eid // e_loc) == my_shard
+    cap = min(_round8(int(t * k * cfg.capacity_factor) // n_shards), t * k)
+    slots = torch.argsort((~sel).to(torch.int8), stable=True)[:cap]
+    valid = sel[slots]
+    e_local = torch.where(valid, eid[slots] - my_shard * e_loc, 0)
+    w_slots = torch.where(valid, wgt[slots], 0.0)
+
+    # --- group by local expert under a per-expert capacity ---
+    cap_e = _round8(int(cap * cfg.capacity_factor) // max(e_loc, 1))
+    grp = (e_local[:, None] == torch.arange(e_loc, device=x.device)) & \
+        valid[:, None]                                      # (cap, E_loc)
+    pos = torch.gather(torch.cumsum(grp.to(torch.int32), dim=0), 1,
+                       e_local[:, None])[:, 0] - 1
+    keep = valid & (pos >= 0) & (pos < cap_e)
+    pos = torch.clamp(pos, 0, cap_e - 1)
+    # Kept slots hold distinct (expert, position) rows; the others go to a
+    # spare last row, which is discarded.
+    dest = torch.where(keep, e_local * cap_e + pos, e_loc * cap_e)
+    disp = xf.new_zeros((e_loc * cap_e + 1, d))
+    disp.index_copy_(0, dest, xf[slots // k])
+    disp = disp[:-1].reshape(e_loc, cap_e, d)
+    h = L.silu(torch.bmm(disp, gate_w)) * torch.bmm(disp, up_w)
+    out_e = torch.bmm(h, down_w).reshape(e_loc * cap_e, d)
+    y_slots = out_e[e_local * cap_e + pos] * \
+        (w_slots * keep)[:, None].to(x.dtype)
+    # --- combine: each token's slots in rank order (slots are distinct) ---
+    y = xf.new_zeros((t * k, d)).index_copy_(0, slots, y_slots)
+    y = y.reshape(t, k, d)
+    acc = xf.new_zeros((t, d))
+    for j in range(k):
+        acc = acc + y[:, j]
+    return acc.reshape(b, s, d)
 
 
 def moe_ffn(params: dict, x: torch.Tensor, cfg: MoEConfig,
-            ctx: L.PhotonicCtx = L.EXACT_CTX,
-            name: str = "moe") -> torch.Tensor:
-    """Shared experts + routed experts.  See the module docstring."""
-    routed = _routed_local(params["router"], params["gate"], params["up"],
-                           params["down"], x, cfg)
+            ctx: L.PhotonicCtx = L.EXACT_CTX, name: str = "moe",
+            dist: DistCtx = LOCAL) -> torch.Tensor:
+    """Shared experts + routed experts.  See the module docstring; with
+    ``dist.model_shards > 1`` ``params``' expert tensors are this rank's
+    slice and the routed part is summed over the model group."""
+    n_shards = dist.model_shards
+    if n_shards == 1:
+        routed = _routed_local(params["router"], params["gate"],
+                               params["up"], params["down"], x, cfg)
+    else:
+        group = shd.axes_group(dist.mesh, (dist.model_axis,))
+        my = dist.mesh.get_local_rank(dist.model_axis)
+        part = _routed_local(shd.copy_to_group(params["router"], group),
+                             params["gate"], params["up"], params["down"],
+                             shd.copy_to_group(x, group), cfg, n_shards, my)
+        routed = shd.reduce_from_group(part, group)
     if "shared" not in params:
         return routed
     return L.mlp(params["shared"], x, ctx, f"{name}.shared") + routed

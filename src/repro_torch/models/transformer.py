@@ -14,8 +14,12 @@ first ``num_image_tokens`` positions) and ``moe`` (deepseek v2/v3: MLA
 attention, a dense head of ``first_dense_layers`` and ``attn_moe``
 layers whose FFN is ``models/moe.py``; v3's multi-token-prediction
 params and ``mtp_hidden``, which only training reads).  The
-encoder-decoder (``audio``) is ``models/encdec.py``.  The reference's
-``dist`` context is dropped: the port runs on one device.
+encoder-decoder (``audio``) is ``models/encdec.py``.  ``param_specs``
+builds the params' tree of logical axes.  Every pass takes the
+reference's ``dist`` (a ``moe.DistCtx``, keyword ``dist=``, default
+``LOCAL``: one process, the code paths of a single device); on a mesh
+it reaches attention's flash-decode and the MoE FFN's expert
+parallelism (``parallel/sharding.py`` states how ranks execute).
 
 Serving: ``init_caches`` -> ``prefill`` -> ``decode_step`` with explicit
 cache trees throughout.  The prefill returns new caches; a decode step
@@ -157,7 +161,11 @@ def make_stacked(maker: L.ParamMaker, name: str, n: int, build_fn) -> dict:
     The n trees are built on threads: each parameter draws from its own
     named stream, so the values do not depend on the order, and PyTorch's
     draws and copies release the interpreter lock (a 7 B model's host-side
-    draws would otherwise run on one core)."""
+    draws would otherwise run on one core).  In spec mode the one tree of
+    logical axes is built once and prefixed with ``STACK``."""
+    if maker.spec_mode:
+        return tree_map(lambda axes: (L.STACK,) + tuple(axes),
+                        build_fn(maker, f"{name}.0"))
     with ThreadPoolExecutor(max_workers=min(n, os.cpu_count() or 1)) as pool:
         parts = list(pool.map(lambda i: build_fn(maker, f"{name}.{i}"),
                               range(n)))
@@ -188,8 +196,19 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
     """Seeded params of ``cfg.dtype`` on ``device`` (the CUDA card unless
     named; each tensor drawn from its own stream: ``layers.ParamMaker``)."""
     check_supported(cfg)
-    maker = L.ParamMaker(seed, dtype=getattr(torch, cfg.dtype),
-                         device=resolve_device(device))
+    return _build_params(cfg, L.ParamMaker(seed, dtype=getattr(torch,
+                                                               cfg.dtype),
+                                           device=resolve_device(device)))
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The params' tree of logical-axis tuples (the reference's
+    ``init_params(cfg, key=None)``)."""
+    check_supported(cfg)
+    return _build_params(cfg, L.ParamMaker(None))
+
+
+def _build_params(cfg: ArchConfig, maker: L.ParamMaker) -> dict:
     p: Dict[str, Any] = {
         "embed": L.make_embedding(maker, "embed", cfg.vocab_size,
                                   cfg.d_model),
@@ -222,7 +241,8 @@ def init_params(cfg: ArchConfig, seed: int, device=None) -> dict:
 
 def mtp_hidden(params: dict, hidden: torch.Tensor, tokens: torch.Tensor,
                cfg: ArchConfig, ctx: L.PhotonicCtx = L.EXACT_CTX,
-               attn_impl: str = "auto") -> torch.Tensor:
+               attn_impl: str = "auto",
+               dist: M.DistCtx = M.LOCAL) -> torch.Tensor:
     """Depth-1 MTP trunk: hidden states for predicting token t+2.
 
     hidden: (B, S, D) main-trunk final hidden; tokens: (B, S).  Returns
@@ -236,7 +256,7 @@ def mtp_hidden(params: dict, hidden: torch.Tensor, tokens: torch.Tensor,
     x = L.dense(mp["proj"], torch.cat([h, e], dim=-1), ctx, "mtp.proj")
     positions = prompt_positions(b, s - 1, tokens.device)
     x, _ = _run_sublayer(mp["block"], x, positions, cfg, "attn_dense", 0,
-                         ctx, "mtp.block", attn_impl=attn_impl)
+                         ctx, "mtp.block", attn_impl=attn_impl, dist=dist)
     return L.rms_norm(mp["final_ln"], x)
 
 
@@ -245,8 +265,10 @@ def mtp_hidden(params: dict, hidden: torch.Tensor, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _run_sublayer(p, x, positions, cfg, kind, window, ctx, name, cache=None,
                   cache_index=None, ssm_impl="auto", attn_impl="auto",
-                  return_state=False):
-    """One sublayer: prefill (full sequence) or one decode step."""
+                  return_state=False, dist: M.DistCtx = M.LOCAL):
+    """One sublayer: prefill (full sequence) or one decode step.  ``dist``
+    reaches attention (its flash-decode) and the MoE FFN (its expert
+    parallelism), as in the reference."""
     if kind == "mamba":
         h = L.rms_norm(p["ln"], x)
         if cache_index is not None:
@@ -260,18 +282,18 @@ def _run_sublayer(p, x, positions, cfg, kind, window, ctx, name, cache=None,
     spec = attn_spec(cfg, window)
     h, new_cache = A.attention(p["attn"], L.rms_norm(p["ln1"], x), positions,
                                spec, ctx, f"{name}.attn", cache, cache_index,
-                               attn_impl=attn_impl)
+                               attn_impl=attn_impl, dist=dist)
     x = x + h
     h2 = L.rms_norm(p["ln2"], x)
     if kind == "attn_moe":
-        ff = M.moe_ffn(p["ffn"], h2, cfg.moe, ctx, f"{name}.ffn")
+        ff = M.moe_ffn(p["ffn"], h2, cfg.moe, ctx, f"{name}.ffn", dist)
     else:
         ff = L.mlp(p["ffn"], h2, ctx, f"{name}.ffn")
     return x + ff, new_cache
 
 
 def _superblock(p, layer_p, x, positions, cfg, g: Group, ctx, layer_c,
-                cache_index, ssm_impl, attn_impl, return_state):
+                cache_index, ssm_impl, attn_impl, return_state, dist):
     """One superblock of group ``g`` (the r-th layer's params ``layer_p``
     and cache slice ``layer_c``); returns (x, its new caches or None)."""
     if g.kind == "mamba_shared":
@@ -282,12 +304,12 @@ def _superblock(p, layer_p, x, positions, cfg, g: Group, ctx, layer_c,
             x, nc[key] = _run_sublayer(
                 layer_p[key], x, positions, cfg, "mamba", 0, ctx,
                 f"{g.name}.m{i}", c, cache_index, ssm_impl, attn_impl,
-                return_state)
+                return_state, dist)
         c = None if layer_c is None else layer_c["sh"]
         x, nc["sh"] = _run_sublayer(
             p["shared_attn"], x, positions, cfg, "attn_dense", 0, ctx,
             f"{g.name}.sh", c, cache_index, ssm_impl, attn_impl,
-            return_state)
+            return_state, dist)
         return x, nc
     if g.period:
         nc = {}
@@ -297,16 +319,17 @@ def _superblock(p, layer_p, x, positions, cfg, g: Group, ctx, layer_c,
             x, nc[key] = _run_sublayer(
                 layer_p[key], x, positions, cfg, kind, win, ctx,
                 f"{g.name}.{i}", c, cache_index, ssm_impl, attn_impl,
-                return_state)
+                return_state, dist)
         return x, nc
     return _run_sublayer(layer_p, x, positions, cfg, g.kind, -1, ctx,
                          g.name, layer_c, cache_index, ssm_impl, attn_impl,
-                         return_state)
+                         return_state, dist)
 
 
 def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
                 cache_index=None, ssm_impl="auto", attn_impl="auto",
-                return_state=False, remat=False):
+                return_state=False, remat=False,
+                dist: M.DistCtx = M.LOCAL):
     """Run one plan group superblock by superblock; returns (x,
     new_caches_or_None).  Call sites are named as in the reference's
     scanned body: after the group, ``{group}.{i}`` for the i-th sublayer
@@ -334,13 +357,13 @@ def _scan_group(p, x, positions, cfg, g: Group, ctx, caches=None,
             x = torch.utils.checkpoint.checkpoint(
                 lambda x_, lp: _superblock(p, lp, x_, positions, cfg, g,
                                            ctx, None, None, ssm_impl,
-                                           attn_impl, False)[0],
+                                           attn_impl, False, dist)[0],
                 x, layer_p, use_reentrant=False, preserve_rng_state=False)
             nc = None
         else:
             x, nc = _superblock(p, layer_p, x, positions, cfg, g, ctx,
                                 layer_c, cache_index, ssm_impl, attn_impl,
-                                return_state)
+                                return_state, dist)
         new_caches.append(nc)
     if cache_index is not None:
         return x, caches
@@ -392,7 +415,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             ctx: L.PhotonicCtx = L.EXACT_CTX, remat: bool = True,
             ssm_impl: str = "auto", attn_impl: str = "auto",
             prefix_embeds: Optional[torch.Tensor] = None,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False,
+            dist: M.DistCtx = M.LOCAL) -> torch.Tensor:
     """Training/scoring forward: tokens (B, S) -> logits (B, S, vocab);
     ``prefix_embeds`` as in ``_embed``.  ``remat``: recompute each
     superblock in the backward (``_scan_group``); the numbers are the same
@@ -408,7 +432,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     for g in layer_plan(cfg):
         x, _ = _scan_group(params[g.name], x, positions, cfg, g, ctx,
                            ssm_impl=ssm_impl, attn_impl=attn_impl,
-                           remat=remat)
+                           remat=remat, dist=dist)
     x = L.rms_norm(params["final_ln"], x)
     if return_hidden:
         return x
@@ -454,8 +478,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             caches: dict, ctx: L.PhotonicCtx = L.EXACT_CTX,
             ssm_impl: str = "auto", attn_impl: str = "auto",
-            prefix_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, dict]:
+            prefix_embeds: Optional[torch.Tensor] = None,
+            dist: M.DistCtx = M.LOCAL) -> Tuple[torch.Tensor, dict]:
     """Fill caches from a prompt; returns (last-token logits, caches).
     ``prefix_embeds``: the VLM's patch embeddings (``_embed``)."""
     check_supported(cfg)
@@ -466,7 +490,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     for g in layer_plan(cfg):
         x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,
                             caches=caches[g.name], ssm_impl=ssm_impl,
-                            attn_impl=attn_impl, return_state=True)
+                            attn_impl=attn_impl, return_state=True,
+                            dist=dist)
         new_caches[g.name] = nc
     x = L.rms_norm(params["final_ln"], x[:, -1:])
     return L.unembed(_head(params, cfg), x, ctx), new_caches
@@ -475,7 +500,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 def decode_step(params: dict, token: torch.Tensor, index,
                 cfg: ArchConfig, caches: dict,
                 ctx: L.PhotonicCtx = L.EXACT_CTX,
-                attn_impl: str = "auto") -> Tuple[torch.Tensor, dict]:
+                attn_impl: str = "auto",
+                dist: M.DistCtx = M.LOCAL) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (B, 1) integer; index: its position, a
     Python int or a 0-d integer tensor on the token's device (what a CUDA
     graph of the step reads).  ``caches`` are updated in place and
@@ -490,7 +516,7 @@ def decode_step(params: dict, token: torch.Tensor, index,
     for g in layer_plan(cfg):
         x, nc = _scan_group(params[g.name], x, positions, cfg, g, ctx,
                             caches=caches[g.name], cache_index=index,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, dist=dist)
         new_caches[g.name] = nc
     x = L.rms_norm(params["final_ln"], x)
     return L.unembed(_head(params, cfg), x, ctx), new_caches

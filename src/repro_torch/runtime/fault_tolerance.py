@@ -11,13 +11,15 @@
     from the last atomic checkpoint -> continue.  The deterministic data
     pipeline (seed, step) makes recovery bit-exact.
   * plan_elastic_remesh — given the surviving device count, the largest
-    (data, model) mesh that keeps the model axis (the data axis shrinks).
+    (data, model) mesh that keeps the model axis (the data axis shrinks);
+    its ``mesh_shape`` is the one ``launch.mesh.make_local_mesh`` builds
+    over the ranks kept.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class HeartbeatMonitor:
@@ -89,6 +91,13 @@ class RemeshPlan:
     @property
     def devices(self) -> int:
         return self.data * self.model
+
+    @property
+    def mesh_shape(self) -> Tuple[int, int]:
+        """(data, model): what ``launch.mesh.make_local_mesh(model)``
+        builds over a world of the ``devices`` ranks kept
+        (``mesh_shape_for(devices, model)``)."""
+        return (self.data, self.model)
 
 
 def plan_elastic_remesh(surviving_devices: int, model_axis: int

@@ -18,7 +18,10 @@ encoder-decoder and moe prefills end to end through the kernels — and
 hold the compiled paths: the CNN forward captured in a CUDA graph
 bit-equal to the eager forward for every resnet_mini bucket (both
 policies, noise off and on from one seed), no capture after warmup, eight
-threads served bitwise, and a graphed decode step equal to the eager one
+threads served bitwise, data-parallel serving's per-entry graphs (two
+entries of one card, and every card where there are two or more) bitwise
+equal to one device and the plain route, and a graphed decode step equal
+to the eager one
 — and hold training on the card: gradients through the default forward
 bit-equal to the plain routes' (the forward-only SSD and flash kernels
 stay out of a backward), and the trainer's loss, resume and photonic QAT
@@ -794,6 +797,55 @@ def test_threads_serve_concurrently_bitwise_on_card(cuda):
     for got, want in zip(results, expect):
         assert len(got) == 10 and all(torch.equal(g, want) for g in got)
     assert engine.stats()["retraces_since_warmup"] == 0
+
+
+def _dp_entries(cuda, entries):
+    if entries == "repeated":
+        return [cuda, cuda]
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards or more")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW])
+@pytest.mark.parametrize("entries", ["repeated", "cards"])
+def test_data_parallel_graphs_equal_one_device_and_plain_on_card(
+        cuda, backend, entries):
+    """Each entry's per-segment graphs: one capture a data-parallel
+    bucket at warmup, none after it, and every request bit-equal to the
+    one-device engine and to the plain route at the padded bucket."""
+    from repro_torch.exec import ServingEngine, trace_count
+    model, params, acc, cfg = _resnet_mini(cuda, backend)
+    devices = _dp_entries(cuda, entries)
+    kw = dict(lowering=model.graph, in_hw=model.in_hw, max_batch=16,
+              plan_cache=PlanCache(), device=cuda)
+    one = ServingEngine(params, acc, cfg, **kw)
+    dp = ServingEngine(params, acc, cfg, data_parallel=True,
+                       devices=devices, **kw)
+    assert dp.data_parallel and dp.stats()["n_devices"] == len(devices)
+    one.warmup()
+    before = trace_count()
+    dp.warmup()       # the other buckets replay the one-device graphs
+    n_dp = sum(b % len(devices) == 0 for b in dp.buckets)
+    assert n_dp > 0 and trace_count() == before + n_dp
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for n in (1, 2, 3, 4, 7, 8, 13, 16, 21):
+        x = torch.randn(n, *model.in_hw, model.in_ch, device=cuda,
+                        generator=gen)
+        got = dp.infer(x)
+        assert torch.equal(got, one.infer(x)), n
+        for lo in range(0, n, 16):
+            chunk = x[lo:lo + 16]
+            b = next(b for b in dp.buckets if b >= chunk.shape[0])
+            xb = torch.cat([chunk, chunk.new_zeros(
+                (b - chunk.shape[0],) + tuple(chunk.shape[1:]))])
+            want = execute_cnn(params, xb, dp.plans[b], cfg, impl="ref",
+                               lowering=model.graph, device=cuda,
+                               compiled=False).logits[:chunk.shape[0]]
+            assert torch.equal(got[lo:lo + 16], want), (n, lo)
+    assert trace_count() == before + n_dp
+    assert dp.stats()["retraces_since_warmup"] == 0
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "qwen2-0.5b", "zamba2-7b",

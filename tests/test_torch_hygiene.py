@@ -57,6 +57,7 @@ print(json.dumps({
     "library_loaded": taom_gemm._LIB is not None,
     "ssd_library_loaded": ssd_scan._LIB is not None,
     "flash_library_loaded": flash_attention._LIB is not None,
+    "process_group": __import__("torch").distributed.is_initialized(),
 }))
 """
 
@@ -75,13 +76,17 @@ def test_import_loads_no_jax_no_reference_and_builds_nothing():
                  "kernels.nvcc", "models.attention", "models.moe",
                  "kernels.flash_attention", "launch.train",
                  "optim.optimizer", "data.pipeline",
-                 "checkpoint.checkpoint", "runtime.fault_tolerance"):
+                 "checkpoint.checkpoint", "runtime.fault_tolerance",
+                 "parallel", "parallel.sharding", "parallel.sharded_ce",
+                 "parallel.pipeline_parallel", "optim.compression",
+                 "launch.mesh", "launch.dryrun"):
         assert f"repro_torch.{name}" in report["modules"], name
     assert report["foreign"] == []
     assert report["processes"] == []
     assert report["library_loaded"] is False
     assert report["ssd_library_loaded"] is False
     assert report["flash_library_loaded"] is False
+    assert report["process_group"] is False
 
 
 @pytest.fixture
@@ -118,9 +123,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
     got = execute_cnn(params, x, engine.plans[2], cfg, lowering=model.graph,
                       device="cpu")
     assert got.logits.shape == (2, 10)
-    with pytest.raises(ValueError, match="data_parallel"):
+    # data-parallel serving over the CPU entries given; one entry is one
+    # device, so the flag takes no effect (and never reaches for a card)
+    dp = ServingEngine(params, acc, cfg, lowering=model.graph,
+                       in_hw=model.in_hw, device="cpu", data_parallel=True)
+    assert dp.devices == [torch.device("cpu")] and not dp.data_parallel
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(params, acc, cfg, lowering=model.graph,
-                      in_hw=model.in_hw, device="cpu", data_parallel=True)
+                      in_hw=model.in_hw, device="cpu", data_parallel=True,
+                      devices=["cpu", "cuda"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from repro_torch.launch import mesh as tmesh
+        tmesh.make_local_mesh()
 
 
 def test_train_runs_on_the_card_unless_told_otherwise(no_cuda, monkeypatch,

@@ -65,6 +65,17 @@ def test_pools(kind, size, stride, padding, hw):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("hw", [(16, 16), (7, 9), (1, 1)])
+def test_global_pool_is_batch_invariant(hw):
+    """An image's mean is the same bits in any batch: the data-parallel
+    engine's shards must equal one device's rows."""
+    x = torch.from_numpy(_x((5, *hw, 6), 4))
+    node = tlw.OpNode("p", "pool", ("in",), pool="global")
+    whole = tlw._apply_pool(node, x)
+    for lo, hi in ((0, 1), (1, 3), (3, 5)):
+        assert torch.equal(tlw._apply_pool(node, x[lo:hi]), whole[lo:hi])
+
+
 def test_shuffle_bit_equal():
     x = _x((2, 3, 4, 12), 3)
     for groups in (2, 3, 4):
