@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dist-serving   # phase 14(c) alone, every card
+    python3 chip_smoke.py --taom-choices   # the fused route's two choices
 
 Phases (any failure exits non-zero; nothing is caught or skipped):
 
@@ -17,18 +18,27 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 plan at the tile that plan gives it (N=83), plus a ragged
                 C>=3 shape; bit-equal wherever the integer psums stay below
                 2^24 (asserted on the inputs); one shape at two tilings.
-                The fused int8 route (quantize, GEMM, rescale in two
-                kernels): both policies, noise on and off, float32 and bf16
-                x, at every plan shape and the photonic mamba2-130m GEMMs
-                (M cut to 512), bit-equal to ``ref.photonic_gemm_reference``.
-                Then time, per plan GEMM (noise off, as served) and at the
-                photonic LM's two GEMMs (M 4000, bf16): the fused route
-                (with the profiler's split between its absmax and int8
-                kernels), the float32 body with PyTorch's quantize and
+                The fused route (quantize, GEMM, rescale in two kernels,
+                three where x is quantized once), on one s8 plane (6 bits)
+                and on two (8 bits): both policies, noise on and off,
+                float32 and bf16 x, at every plan shape and the photonic
+                mamba2-130m GEMMs (M cut to 512), bit-equal to
+                ``ref.photonic_gemm_reference``; the float32 body through
+                ``ops.photonic_matmul`` where 9 bits and 8 bits at N 259
+                take it, bit-equal to impl='ref'.  Then time, per plan GEMM
+                (noise off, as served) and at the photonic LM's two GEMMs
+                (M 4000, bf16): the fused route at 6 bits (with the
+                profiler's split between its kernels; at the LM's widths
+                also with x quantized on load in every column tile) and at
+                8 bits, the float32 body with PyTorch's quantize and
                 rescale, that body alone, the plain route and torch.matmul
                 (device time from CUDA graph replay, and time per eager
                 call) beside the bound (x, w and the output once at 3.35
-                TB/s against 2 M K D operations at 1,979 TOP/s int8);
+                TB/s against 2 M K D operations at 1,979 TOP/s int8, for 8
+                bits at 989 TFLOP/s bf16), each route's kernels a call
+                counted by the profiler and held equal to the plan's; the
+                same count at the Table-4 GEMM shapes under each photonic
+                column's 8-bit config (``table4_kernel_counts``);
   3. serving  — ServingEngine for resnet_mini (seeded random weights, the
                 paper's equal-area HEANA point, 6-bit, noise off,
                 max_batch 64) warms up — capturing each of its 7 buckets'
@@ -191,10 +201,15 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 through ``transformer.forward`` under the default routes
                 bit-equal to the plain routes', and ssm_impl='kernel'
                 under grad raising.  Photonic QAT (photonic_heana: 8-bit
-                HEANA, N 128), 5 steps: 480 TAOM launches (the forward's
-                48 photonic GEMMs and the remat recompute's, a step),
-                losses and final params bit-equal to impl='ref'; the TAOM
-                kernel timed at QAT's two GEMM shapes beside the bound.
+                HEANA, N 128), 5 steps: 480 TAOM wrapper calls, all on the
+                fused route's two s8 planes (the forward's 48 photonic
+                GEMMs and the remat recompute's, a step), losses and final
+                params bit-equal to impl='ref'; one more QAT step profiled
+                (device busy, kernels, the TAOM kernels' share, none of the
+                float32 body); the TAOM kernel timed at QAT's two GEMM
+                shapes: the fused route (x quantized once, and on load),
+                the float32 body with PyTorch's quantize and rescale, the
+                body alone and the plain route beside the bound.
                 qwen2-0.5b at its full width, 5 steps: loss, step time,
                 peak memory, one more step profiled;
   13. examples — the ten ``examples_torch`` scripts on the card, each
@@ -220,12 +235,15 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 flash within 1e-5 in float32 and one bf16 ulp of each query
                 row's max|plain| in bf16), and every signature a CUDA graph
                 captured must also have run eagerly.  Then the
-                Table-4 columns on evaluate's 512 images (8 bits: the TAOM
-                float32 body at N = 83, 2 and 1): the kernel route's logits
-                bit-equal to impl='ref' with the same noise, each GEMM's
-                largest integer sum beside 2^24, each GEMM timed against
-                the plain route and the bound (operations at the bf16
-                rate: 8-bit operands do not fit int8);
+                Table-4 columns on evaluate's 512 images (8 bits: the fused
+                route on two s8 planes, on the tensor cores at N = 83 and
+                through the small-chunk kernel at N = 2 and 1): the kernel
+                route's logits bit-equal to impl='ref' with the same noise,
+                each GEMM's largest integer sum beside 2^24, each GEMM
+                timed against the float32 route, the plain route and the
+                bound (operations at the bf16 rate: 8-bit operands do not
+                fit int8; this design's own floor is four s8 products, at
+                twice that);
   14. dist    — distribution on torch.distributed (the card is one, so
                 the paths run at world size 1 and in two processes on it):
                 (a) a world of one over NCCL (``launch/mesh.
@@ -270,8 +288,8 @@ Phases (any failure exits non-zero; nothing is caught or skipped):
                 card;
   15. report  — the kernels' JSON line (each kernel's launches summed over
                 the served, trained, example and distributed paths, and
-                per path), the card's name and power limit, and the
-                result line.
+                per path; the TAOM kernel's also per route), the card's
+                name and power limit, and the result line.
 
 Needs one CUDA card and the repository around it (``src/repro_torch``);
 imports neither JAX nor the reference package.
@@ -336,7 +354,8 @@ FAMILIES = (("zamba2", "zamba2-7b", 4, 1000),
 # Phase 12's training runs: mamba2-130m at its full width (as the
 # reference's examples/train_lm.py trains it), batch 8 x seq 256 tokens a
 # step, bf16 as configured; photonic QAT at photonic_heana (8-bit HEANA, N
-# 128: the TAOM kernel's float32 body); qwen2-0.5b for the dense family.
+# 128: the TAOM kernel's fused route on two s8 planes); qwen2-0.5b for the
+# dense family.
 TRAIN_ARCH = "mamba2-130m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, QAT_STEPS = 8, 256, 20, 5
 DENSE_TRAIN_ARCH, DENSE_TRAIN_STEPS = "qwen2-0.5b", 5
@@ -445,7 +464,7 @@ def device_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(stop) / (iters * replays)
 
 
-def profile(fn, runs: int, kernel, split=()) -> dict:
+def profile(fn, runs: int, kernel, split=(), want=None) -> dict:
     """Run fn() ``runs`` times under torch.profiler and split the device's
     time per run: busy (sum of kernel times), idle share of the span from
     the first kernel's start to the last one's end, the time and launches
@@ -454,16 +473,22 @@ def profile(fn, runs: int, kernel, split=()) -> dict:
     ``split``.
 
     The profiler can drop a session's device records (on the H100 machine
-    a session now and then shows part of a kernel's launches, or none),
-    and never adds any; fn's kernels are the same in every session.  So
-    the block is profiled until two sessions see the same number of
-    device kernels (at most four), and the session that sees the most is
-    read."""
+    a session now and then shows part of a kernel's launches, or none;
+    two sessions can drop the same number of records), and never
+    adds any; fn's kernels are the same in every session.  So the block
+    is profiled again, at most six sessions, a second's pause after one
+    that saw nothing.  Where the caller knows counts, ``want`` maps keys
+    of the result to them: the first session that shows them all is
+    read, and where none does the caller's own check fails on the
+    session that saw the most.  Otherwise profiling stops when two
+    sessions see the same nonzero number of device kernels, and the
+    session that sees the most is read."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     sessions = []
-    while len(sessions) < 4:
+    while len(sessions) < 6:
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -471,17 +496,28 @@ def profile(fn, runs: int, kernel, split=()) -> dict:
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / runs * 1e3
-        sessions.append(([e for e in prof.events()
-                          if e.device_type == DeviceType.CUDA], wall_ms))
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if want is not None and kernels:
+            row = _profile_row(kernels, wall_ms, runs, names, split)
+            if all(row[key] == value for key, value in want.items()):
+                return row
+        sessions.append((kernels, wall_ms))
         counts = [len(k) for k, _ in sessions]
-        if counts.count(max(counts)) >= 2:
+        if want is None and max(counts) and counts.count(max(counts)) >= 2:
             break
+        if not counts[-1]:
+            time.sleep(1.0)
     kernels, wall_ms = max(sessions, key=lambda s: len(s[0]))
     assert kernels, "the profiler saw no device activity"
+    return _profile_row(kernels, wall_ms, runs, names, split)
+
+
+def _profile_row(kernels, wall_ms: float, runs: int, names, split) -> dict:
+    """profile()'s summary of one session's device records."""
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels) -
                min(e.time_range.start for e in kernels))
-    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     ours = [e for e in kernels if any(n in e.name for n in names)]
     ours_us = sum(e.time_range.elapsed_us() for e in ours)
     by_name = {}
@@ -512,28 +548,51 @@ def taom_bound(m: int, k: int, d: int, elt_bytes: int,
     and the (M, D) output written once in the operands' type (plus the
     float32 noise when it is on), against 2 M K D operations at the
     tensor-core rate of the narrowest type that holds the quantized
-    operands: int8 for the fused route (bits <= 7), bf16 for 8-bit
-    operands (the float32 body; qmax 255 does not fit int8, and an 8-bit
-    integer is exact in bf16)."""
+    operands: int8 for bits <= 7, bf16 for 8-bit operands (qmax 255 does
+    not fit int8, and an 8-bit integer is exact in bf16).  For 8-bit
+    operands ``s8x2_floor_ms`` is the fused route's own floor: it splits
+    each operand into two s8 planes and does four s8 products for each,
+    2 M K D operations at twice the bf16 bound's time."""
     nbytes = elt_bytes * (m * k + k * d + m * d) + 4 * noise_floats
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     rate = INT8_OPS_PER_S if int8 else BF16_FLOPS_PER_S
     ops_ms = 2.0 * m * k * d / rate * 1e3
-    return {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    row = {"bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if not int8:
+        row["s8x2_floor_ms"] = max(bytes_ms,
+                                   4 * 2.0 * m * k * d / INT8_OPS_PER_S * 1e3)
+    return row
+
+
+def taom_kernels(m: int, k: int, d: int, cfg, block_d: int = 128) -> int:
+    """Device kernels of one TAOM wrapper call on the card: the float32
+    body's one, or the fused route's two (absmax, GEMM) and the quantize
+    of x where its plan quantizes x once."""
+    from repro_torch.kernels import taom_gemm
+    route = taom_gemm.taom_route(cfg)
+    if route == "float32":
+        return 1
+    plan = taom_gemm.int8_plan(m, k, d, cfg.dpe_size, block_d,
+                               planes=1 if route == "int8" else 2)
+    return 2 + int(plan["x_once"])
 
 
 def taom_times(name, x, w, cfg, block_m: int, block_d: int,
                unaligned: bool = False) -> dict:
-    """One photonic GEMM (noise off, as served) three ways: the fused int8
-    route (two kernels; the profiler splits them), the float32 body with
-    PyTorch's quantize and rescale around it (the unfused route, which
-    8-bit operands still take), and the plain route; device times from
-    CUDA graph replay beside the bound.  The first two must agree bit for
-    bit with the plain route.  ``unaligned`` also times the fused route on
-    a copy of x one element off a 16-byte boundary, which it reads with
-    synchronous loads instead of cp.async."""
+    """One photonic GEMM (noise off, as served) several ways: the fused
+    route at ``cfg``'s bits (its kernels split by the profiler; where its
+    plan quantizes x once, also with x quantized on load in every column
+    tile), the same GEMM at 8 bits through the fused route on two s8
+    planes, the float32 body with PyTorch's quantize and rescale around it
+    (the unfused route, which bits >= 9 take), that body alone, and the
+    plain routes; device times from CUDA graph replay beside the bounds.
+    Every kernel route must agree bit for bit with its plain route.
+    ``unaligned`` also times the fused route on a copy of x one element
+    off a 16-byte boundary, which it reads without 16-byte vector
+    loads."""
+    import dataclasses
     import torch
     from repro_torch.core.taom import quantize
     from repro_torch.kernels import ref, taom_gemm
@@ -543,9 +602,20 @@ def taom_times(name, x, w, cfg, block_m: int, block_d: int,
     xq, sx = quantize(x.float(), cfg.bits)
     wq, sw = quantize(w.float(), cfg.bits, axis=0)
     xq, wq = xq.contiguous(), wq.contiguous()
+    cfg8 = dataclasses.replace(cfg, bits=8)
+    fs8 = taom_gemm.calibrated_adc_fs(k, cfg8)
+    assert taom_gemm.taom_route(cfg8) == "s8x2"
+    plan = taom_gemm.int8_plan(m, k, d, cfg.dpe_size, block_d)
 
-    def fused():
+    def fused(x_once=None):
+        force = (None if x_once is None else taom_gemm.int8_plan(
+            m, k, d, cfg.dpe_size, block_d, x_once=x_once))
         return taom_gemm.taom_gemm_fused(x, w, None, cfg, fs,
+                                         block_m=block_m, block_d=block_d,
+                                         _plan=force)
+
+    def s8x2():
+        return taom_gemm.taom_gemm_fused(x, w, None, cfg8, fs8,
                                          block_m=block_m, block_d=block_d)
 
     def f32_body():
@@ -563,27 +633,49 @@ def taom_times(name, x, w, cfg, block_m: int, block_d: int,
     def plain():
         return ref.photonic_gemm_reference(x, w, None, cfg, fs)
 
-    want = plain()
-    for route in (fused, f32_route):
+    def plain8():
+        return ref.photonic_gemm_reference(x, w, None, cfg8, fs8)
+
+    want, want8 = plain(), plain8()
+    routes = [(fused, want), (f32_route, want), (s8x2, want8)]
+    if plan["x_once"]:
+        routes.append((lambda: fused(x_once=False), want))
+    for route, expect in routes:
         got = route()
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (name, route.__name__, (
-            got.float() - want.float()).abs().max().item())
-    split = profile(fused, 20, "taom_gemm", split=taom_gemm.KERNELS)
-    assert split["kernel_launches_per_run"] == 2, split
+        assert torch.equal(got, expect), (name, route.__name__, (
+            got.float() - expect.float()).abs().max().item())
+    # The profiler counts each route's kernels on this GEMM, held against
+    # the plan's count.
+    kernels = taom_kernels(m, k, d, cfg, block_d)
+    split = profile(fused, 20, "taom_gemm", split=taom_gemm.KERNELS,
+                    want={"kernel_launches_per_run": kernels})
+    assert split["kernel_launches_per_run"] == kernels, split
+    kernels8 = taom_kernels(m, k, d, cfg8, block_d)
+    split8 = profile(s8x2, 20, "taom_gemm",
+                     split=taom_gemm.KERNELS + ("taom_gemm_kernel",),
+                     want={"kernel_launches_per_run": kernels8})
+    assert split8["kernel_launches_per_run"] == kernels8 <= 3, split8
+    assert split8["split_launches_per_run"]["taom_gemm_kernel"] == 0, split8
     row = {"gemm": name, "m": m, "k": k, "d": d,
            "chunks": -(-k // cfg.dpe_size), "dtype": str(x.dtype)[6:],
-           "plan": {key: taom_gemm.int8_plan(m, k, d, cfg.dpe_size,
-                                             block_d)[key]
-                    for key in ("width", "warps", "tile_m", "grid")},
+           "plan": {key: plan[key]
+                    for key in ("width", "warps", "tile_m", "grid",
+                                "x_once")},
+           "kernels": split["kernel_launches_per_run"],
            "fused_ms": device_ms(fused),
            "split_ms": split["split_ms_per_run"],
+           "s8x2_ms": device_ms(s8x2),
+           "s8x2_kernels": split8["kernel_launches_per_run"],
+           "s8x2_plain_ms": device_ms(plain8),
            "f32_route_ms": device_ms(f32_route),
            "f32_body_ms": device_ms(f32_body),
            "plain_ms": device_ms(plain),
            "matmul_ms": device_ms(lambda: torch.matmul(x, w)),
            "fused_call_ms": call_ms(fused),
            "f32_route_call_ms": call_ms(f32_route)}
+    if plan["x_once"]:
+        row["fused_on_load_ms"] = device_ms(lambda: fused(x_once=False))
     if unaligned:
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         x_off = buf[1:].view(m, k).copy_(x)
@@ -593,17 +685,29 @@ def taom_times(name, x, w, cfg, block_m: int, block_d: int,
         assert torch.equal(sync(), want), name
         row["fused_sync_ms"] = device_ms(sync)
     row.update(taom_bound(m, k, d, x.element_size()))
+    bound8 = taom_bound(m, k, d, x.element_size(), int8=False)
+    row["s8x2_bound_ms"] = bound8["bound_ms"]
+    row["s8x2_floor_ms"] = bound8["s8x2_floor_ms"]
     log("[kernel] {gemm} M={m} K={k} D={d} C={chunks} {dtype} plan={plan}: "
-        "fused_ms={fused_ms:.5f} (split {split_ms}) f32_route_ms="
-        "{f32_route_ms:.5f} (f32 body alone {f32_body_ms:.5f}) plain_ms="
-        "{plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
+        "fused_ms={fused_ms:.5f} ({kernels:g} kernels profiled, split "
+        "{split_ms}) "
+        "f32_route_ms={f32_route_ms:.5f} (f32 body alone {f32_body_ms:.5f}) "
+        "plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} ({bound_by}) "
         "library_ms(torch.matmul, the nearest single PyTorch call, not "
         "the same function)={matmul_ms:.5f} (device times, CUDA graph "
         "replay); per eager call: fused {fused_call_ms:.5f} f32 route "
-        "{f32_route_call_ms:.5f}".format(**row))
+        "{f32_route_call_ms:.5f}; at 8 bits the fused route on two s8 "
+        "planes {s8x2_ms:.5f} ({s8x2_kernels:g} kernels profiled; plain "
+        "{s8x2_plain_ms:.5f}, bound at the bf16 rate {s8x2_bound_ms:.5f}, "
+        "this design's floor computed at four s8 products "
+        "{s8x2_floor_ms:.5f})".format(**row))
+    if plan["x_once"]:
+        log(f"[kernel] {name}: x quantized on load in each of "
+            f"{plan['grid'][1]} column tiles instead of once: "
+            f"{row['fused_on_load_ms']:.5f} ms")
     if unaligned:
         log(f"[kernel] {name}: fused route on x one element off a 16-byte "
-            f"boundary (synchronous loads, no cp.async for x): "
+            f"boundary (no 16-byte vector loads of x): "
             f"{row['fused_sync_ms']:.5f} ms")
     return row
 
@@ -683,7 +787,8 @@ def ssd_phase(dev) -> dict:
         "three kernels (device times, CUDA graph replay); library_ms: none "
         "(no single PyTorch call computes the scan)".format(bh, l, p, s, q,
                                                             **row))
-    split = profile(kernel, 20, "ssd_scan", split=ssd_scan.KERNELS)
+    split = profile(kernel, 20, "ssd_scan", split=ssd_scan.KERNELS,
+                    want={"kernel_launches_per_run": len(ssd_scan.KERNELS)})
     assert split["kernel_launches_per_run"] == len(ssd_scan.KERNELS), split
     row["split_ms"] = split["split_ms_per_run"]
     row["profiled_ms"] = split["kernel_ms_per_run"]
@@ -707,6 +812,19 @@ def counts() -> tuple:
 def zero_counts() -> None:
     from repro_torch.kernels import flash_attention, ssd_scan, taom_gemm
     taom_gemm.LAUNCHES = ssd_scan.LAUNCHES = flash_attention.LAUNCHES = 0
+    for route in taom_gemm.ROUTE_LAUNCHES:
+        taom_gemm.ROUTE_LAUNCHES[route] = 0
+
+
+# The TAOM wrapper's launches per route on each path that runs it, read
+# (``note_routes``) right after the path's counts.
+TAOM_ROUTES_BY_PATH = {}
+
+
+def note_routes(path: str) -> None:
+    from repro_torch.kernels import taom_gemm
+    assert sum(taom_gemm.ROUTE_LAUNCHES.values()) == taom_gemm.LAUNCHES
+    TAOM_ROUTES_BY_PATH[path] = dict(taom_gemm.ROUTE_LAUNCHES)
 
 
 def eager_decode(cfg, prompts, gen: int, dev, params=None) -> tuple:
@@ -929,17 +1047,20 @@ def lm_phase(dev) -> dict:
         f"the plain version (|psum| <= {pcfg.qmax}^2 * 83 < 2^24)")
 
     # Profile of one photonic prefill through the TAOM kernels (the fused
-    # int8 route: two kernels a GEMM).
+    # route on one s8 plane: two kernels a GEMM, three where x is quantized
+    # once, as at both of these widths).
     def photonic_prefill():
         caches = zoo.init_caches(cfg, LM_BATCH, LM_PROMPT, device=dev)
         zoo.prefill_fn(params, {"tokens": prompts.to(dev)}, cfg, caches,
                        ctx=PhotonicCtx(cfg=pcfg, impl="kernel"),
                        ssm_impl="kernel")
 
+    want = cfg.num_layers * sum(taom_kernels(*row[1:], pcfg)
+                                for row in TAOM_LM_SHAPES)
     photonic = profile(photonic_prefill, 3, "taom_gemm",
-                       split=taom_gemm.KERNELS)
-    assert photonic["kernel_launches_per_run"] == 4 * cfg.num_layers, (
-        photonic)
+                       split=taom_gemm.KERNELS,
+                       want={"kernel_launches_per_run": want})
+    assert photonic["kernel_launches_per_run"] == want, (want, photonic)
     log("[mamba] one photonic prefill under torch.profiler (3 runs): " +
         json.dumps(photonic, sort_keys=True))
     log(f"[mamba] photonic prefill: TAOM route "
@@ -956,10 +1077,11 @@ def lm_phase(dev) -> dict:
                        ssm_impl="kernel")
 
     prefill()
-    split = profile(prefill, 3, "ssd_scan", split=ssd_scan.KERNELS)
+    kernels = len(ssd_scan.KERNELS) * cfg.num_layers
+    split = profile(prefill, 3, "ssd_scan", split=ssd_scan.KERNELS,
+                    want={"kernel_launches_per_run": kernels})
     log("[mamba] one prefill under torch.profiler (3 runs): " +
         json.dumps(split, sort_keys=True))
-    kernels = len(ssd_scan.KERNELS) * cfg.num_layers
     assert split["kernel_launches_per_run"] == kernels, split
     log(f"[mamba] the profiler counts {split['kernel_launches_per_run']:g} "
         f"ssd_scan kernels a prefill ({len(ssd_scan.KERNELS)} per wrapper "
@@ -1423,11 +1545,13 @@ def served_phase(dev, tag: str, arch: str, cfg, batch: int, prompt: int,
         f"warm call: {prefill_host['ms']:.3f} ms" + (
             f" with seeded random patches, {zero_ms:.3f} ms with serve()'s "
             f"zero patches" if zero_ms else ""))
-    split = profile(prefill, 3, names, split=names)
+    profiled = {"ssd_scan": 3 * want[1],
+                "flash_attention_fwd_kernel": want[2]}
+    split = profile(prefill, 3, names, split=names,
+                    want={"split_launches_per_run": profiled})
     log(f"[{tag}] one prefill under torch.profiler (3 runs): " +
         json.dumps(split, sort_keys=True))
-    assert split["split_launches_per_run"] == {
-        "ssd_scan": 3 * want[1], "flash_attention_fwd_kernel": want[2]}, (
+    assert split["split_launches_per_run"] == profiled, (
         split["split_launches_per_run"])
     tok = logits[:, -1].float().argmax(-1)[:, None]
     step = profile(lambda: zoo.decode_fn(params, tok, prompt, cfg, state), 3,
@@ -1788,17 +1912,24 @@ def moe_v3_phase(dev) -> dict:
 def qat_times(dev, cfg, gemms) -> list:
     """The TAOM kernel at photonic QAT's shapes (bf16 activations and
     weights, the photonic_heana config, noise off): the route a training
-    step's forward takes (PyTorch's quantize, the float32 body,
-    rescale: ``ops.photonic_matmul(impl="kernel")``), the body alone and
-    the plain route, device times (CUDA graph replay) beside the bound —
-    x, w and the output read or written once in bf16, 2 M K D operations
-    at the bf16 tensor-core rate (an 8-bit operand is exact in bf16).
-    The kernel route must equal the plain one bit for bit: each chunk's
-    psum is exact (qmax^2 N < 2^24) and both sum the chunks in order."""
+    step's forward takes (``ops.photonic_matmul(impl="kernel")``: the
+    fused route on two s8 planes, x quantized once), the same with x
+    quantized on load in every column tile, the float32 route (PyTorch's
+    quantize, the float32 body, rescale: the route before this design),
+    the body alone and the plain route, device times (CUDA graph replay)
+    beside the bound — x, w and the output read or written once in bf16,
+    2 M K D operations at the bf16 tensor-core rate (an 8-bit operand is
+    exact in bf16); this design's own floor, four s8 products for each
+    operation, is twice that.  Every kernel route must equal the plain
+    one bit for bit: each chunk's psum is exact (qmax^2 N < 2^24) and all
+    sum the chunks in order.  Each call of the route is counted on two s8
+    planes (``ROUTE_LAUNCHES``); the QAT step's profile reads its
+    kernels."""
     import torch
     from repro_torch.core.taom import quantize
-    from repro_torch.kernels import ops, taom_gemm
+    from repro_torch.kernels import ops, ref, taom_gemm
     gen = torch.Generator(device=dev).manual_seed(9)
+    assert taom_gemm.taom_route(cfg) == "s8x2"
     rows = []
     for name, m, k, d in gemms:
         x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
@@ -1810,24 +1941,63 @@ def qat_times(dev, cfg, gemms) -> list:
         assert cfg.qmax ** 2 * cfg.dpe_size < EXACT_LIMIT
         route = lambda: ops.photonic_matmul(x, w, cfg,   # noqa: E731
                                             impl="kernel")
+        on_load = lambda: taom_gemm.taom_gemm_fused(     # noqa: E731
+            x, w, None, cfg, fs, _plan=taom_gemm.int8_plan(
+                m, k, d, cfg.dpe_size, planes=2, x_once=False))
         plain = lambda: ops.photonic_matmul(x, w, cfg,   # noqa: E731
                                             impl="ref")
+
+        def f32_route():
+            xq_, sx_ = quantize(x.float(), cfg.bits)
+            wq_, sw_ = quantize(w.float(), cfg.bits, axis=0)
+            acc = taom_gemm.taom_gemm_quantized(xq_.contiguous(),
+                                                wq_.contiguous(), None, cfg,
+                                                fs)
+            return (acc * (sx_ * sw_)).to(x.dtype)
+
         body = lambda: taom_gemm.taom_gemm_quantized(    # noqa: E731
             xq, wq, None, cfg, fs)
         with torch.no_grad():
-            assert torch.equal(route(), plain()), name
+            want = plain()
+            for fn in (route, on_load, f32_route):
+                assert torch.equal(fn(), want), name
+            assert torch.equal(want, ref.photonic_gemm_reference(
+                x, w, None, cfg, fs)), name
+            # The route's one wrapper call runs on two s8 planes: its
+            # kernels are absmax, the quantize of x where the plan has it,
+            # and the GEMM, counted by the profiler on this GEMM alone and
+            # held against the plan.
+            zero_counts()
+            route()
+            assert taom_gemm.ROUTE_LAUNCHES["s8x2"] == taom_gemm.LAUNCHES == 1
+            prof = profile(route, 20, "taom_gemm",
+                           split=taom_gemm.KERNELS + ("taom_gemm_kernel",),
+                           want={"kernel_launches_per_run":
+                                 taom_kernels(m, k, d, cfg)})
+            kernels = prof["kernel_launches_per_run"]
+            assert kernels == taom_kernels(m, k, d, cfg) <= 3, prof
+            assert prof["split_launches_per_run"]["taom_gemm_kernel"] == 0
             row = {"gemm": name, "m": m, "k": k, "d": d,
-                   "chunks": -(-k // cfg.dpe_size),
-                   "route_ms": device_ms(route), "body_ms": device_ms(body),
+                   "chunks": -(-k // cfg.dpe_size), "kernels": kernels,
+                   "split_launches": prof["split_launches_per_run"],
+                   "route_ms": device_ms(route),
+                   "on_load_ms": device_ms(on_load),
+                   "f32_route_ms": device_ms(f32_route),
+                   "body_ms": device_ms(body),
                    "plain_ms": device_ms(plain),
                    "matmul_ms": device_ms(lambda: torch.matmul(x, w))}
-        row.update(taom_bound(m, k, d, 2, int8=taom_gemm.int8_route(cfg)))
+        row.update(taom_bound(m, k, d, 2, int8=False))
         log("[train] TAOM at QAT's {gemm} M={m} K={k} D={d} C={chunks} "
-            "(8-bit HEANA, bf16 operands): route_ms={route_ms:.5f} (float32 "
-            "body alone {body_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms="
-            "{bound_ms:.5f} ({bound_by}) torch.matmul_ms={matmul_ms:.5f} "
-            "(device times, CUDA graph replay); kernel route == plain "
-            "route bit for bit".format(**row))
+            "(8-bit HEANA, bf16 operands): route_ms={route_ms:.5f} (the "
+            "fused route on two s8 planes, {kernels:g} kernels profiled, "
+            "{split_launches}; x quantized "
+            "on load in every column tile {on_load_ms:.5f}) "
+            "f32_route_ms={f32_route_ms:.5f} (float32 body alone "
+            "{body_ms:.5f}) plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+            "({bound_by}; this design's floor computed at four s8 products "
+            "{s8x2_floor_ms:.5f}) torch.matmul_ms={matmul_ms:.5f} (device "
+            "times, CUDA graph replay); every kernel route == plain route "
+            "bit for bit".format(**row))
         rows.append(row)
     return rows
 
@@ -1847,7 +2017,8 @@ def train_phase(dev) -> dict:
     from repro_torch.launch import train as T
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models import transformer
-    from repro_torch.models.layers import EXACT_CTX
+    from repro_torch.kernels import taom_gemm
+    from repro_torch.models.layers import EXACT_CTX, PhotonicCtx
     from repro_torch.models.transformer import tree_leaves, tree_map
     from repro_torch.optim import optimizer as opt
 
@@ -1976,7 +2147,11 @@ def train_phase(dev) -> dict:
         qat[impl] = T.train(TRAIN_ARCH, steps=QAT_STEPS,
                             numerics="photonic_heana", impl=impl, **kw)
         qat[impl + "_launches"] = counts()
+        if impl == "auto":
+            note_routes(f"{TRAIN_ARCH} train photonic_heana")
     assert qat["auto_launches"] == (expected, 0, 0), qat["auto_launches"]
+    assert TAOM_ROUTES_BY_PATH[f"{TRAIN_ARCH} train photonic_heana"][
+        "s8x2"] == expected, TAOM_ROUTES_BY_PATH
     assert qat["ref_launches"] == (0, 0, 0), qat["ref_launches"]
     assert qat["auto"].losses == qat["ref"].losses, (qat["auto"].losses,
                                                      qat["ref"].losses)
@@ -1988,6 +2163,49 @@ def train_phase(dev) -> dict:
             for impl in ("auto", "ref")}
     out["qat"] = {"losses": qat["auto"].losses, "launches": expected,
                   "step_ms": q_ms["auto"], "plain_step_ms": q_ms["ref"]}
+    # One more QAT step through the kernel under the profiler: device
+    # busy, kernels, the TAOM kernels' share.
+    qcfg = T.NUMERICS["photonic_heana"]
+    m = TRAIN_BATCH * TRAIN_SEQ
+    d_inner = 2 * cfg.d_model
+    in_d = 2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.state_dim + \
+        d_inner // cfg.ssm.head_dim
+    gemms = (("in_proj", m, cfg.d_model, in_d),
+             ("out_proj", m, d_inner, cfg.d_model))
+    # The GEMMs alone first: their short profiler sessions come before the
+    # step's ~10 k-kernel one (right after it, a session has seen nothing).
+    out["qat"]["gemms"] = qat_times(dev, qcfg, gemms)
+    held = {"state": qat["auto"].state}
+    qctx = PhotonicCtx(cfg=qcfg, impl="auto")
+
+    def qat_step():
+        _, held["state"], _ = T.train_step(qat["auto"].params, held["state"],
+                                           batch, cfg, qctx, adam)
+    zero_counts()
+    prof = profile(qat_step, 1, "taom_gemm",
+                   split=taom_gemm.KERNELS + ("taom_gemm_kernel",))
+    # Forward and remat recompute: each GEMM twice a layer, every wrapper
+    # call on two s8 planes (the profiler ran the step once a session) and
+    # none of the float32 body.  The profiler's kernel count is read, not
+    # held: a session of ~10 k kernels can drop a few records (``profile``).
+    sessions, rest = divmod(taom_gemm.ROUTE_LAUNCHES["s8x2"],
+                            2 * 2 * cfg.num_layers)
+    assert sessions > 0 and rest == 0, taom_gemm.ROUTE_LAUNCHES
+    assert taom_gemm.ROUTE_LAUNCHES["float32"] == 0, taom_gemm.ROUTE_LAUNCHES
+    assert prof["split_launches_per_run"]["taom_gemm_kernel"] == 0, prof
+    prof["taom_kernels_expected"] = 2 * cfg.num_layers * sum(
+        taom_kernels(*g[1:], qcfg) for g in gemms)
+    out["qat"]["profile"] = prof
+    log(f"[train] one photonic QAT step under the profiler: "
+        f"{prof['profiled_wall_ms_per_run']:.2f} ms host clock, "
+        f"{prof['device_busy_ms_per_run']:.2f} ms device busy, idle "
+        f"{prof['device_idle_share']:.1%}, "
+        f"{prof['device_kernels_per_run']:g} kernels; TAOM "
+        f"{prof['kernel_launches_per_run']:g} kernels of "
+        f"{prof['taom_kernels_expected']} launched, "
+        f"{prof['kernel_ms_per_run']:.3f} ms, split " +
+        json.dumps(prof["split_ms_per_run"]) + "; top: " +
+        json.dumps(prof["top_kernels_ms_per_run"][:5]))
     log(f"[train] photonic QAT (photonic_heana) {QAT_STEPS} steps: "
         f"{expected} TAOM launches = {QAT_STEPS} steps x 2 (forward + "
         f"remat recompute) x 2 x {cfg.num_layers} layers; losses "
@@ -1995,15 +2213,7 @@ def train_phase(dev) -> dict:
         f"bit-equal to impl='ref'; warm step {q_ms['auto']:.2f} ms through "
         f"the kernel, {q_ms['ref']:.2f} ms through the plain route (host "
         f"clock)")
-    del qat
-    m = TRAIN_BATCH * TRAIN_SEQ
-    d_inner = 2 * cfg.d_model
-    in_d = 2 * d_inner + 2 * cfg.ssm.n_groups * cfg.ssm.state_dim + \
-        d_inner // cfg.ssm.head_dim
-    out["qat"]["gemms"] = qat_times(
-        dev, T.NUMERICS["photonic_heana"],
-        (("in_proj", m, cfg.d_model, in_d), ("out_proj", m, d_inner,
-                                              cfg.d_model)))
+    del qat, held
 
     # The dense family: qwen2-0.5b at full width.
     torch.cuda.reset_peak_memory_stats()
@@ -2195,6 +2405,57 @@ def run_example(name: str, argv: list) -> tuple:
     return out, launches, secs, held
 
 
+def table4_kernel_counts(dev) -> dict:
+    """The Table-4 forward's four GEMM shapes (``TABLE4_SHAPES``) under
+    each photonic column's config (8 bits: int8 at N 83, noise off; HEANA
+    at N 2 and MAW at N 1, noise on), random operands: each call bit-equal
+    to the plain version, and its TAOM kernels as the profiler counts them
+    in short sessions early in the run (phase 13 times these GEMMs; there,
+    after the training phases' long sessions, a session has seen nothing),
+    held equal to the plan's count, at most 3, none the float32 body."""
+    import torch
+    from repro_torch.core.photonic_gemm import CHUNK_ADC_BACKENDS
+    from repro_torch.kernels import ref, taom_gemm
+    if EXAMPLES not in sys.path:
+        sys.path.insert(0, EXAMPLES)
+    import _table4
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    for numerics in ("int8", "heana", "maw"):
+        cfg = _table4.numerics_config(numerics)
+        assert taom_gemm.taom_route(cfg) == "s8x2", cfg
+        out[numerics] = []
+        for m, k, d in TABLE4_SHAPES:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((k, d), generator=gen, device=dev)
+            noise = None
+            if cfg.noise_enabled:
+                c = -(-k // cfg.dpe_size)
+                noise = torch.randn(
+                    (c, m, d) if cfg.backend in CHUNK_ADC_BACKENDS else (m, d),
+                    generator=gen, device=dev)
+            fs = taom_gemm.calibrated_adc_fs(k, cfg)
+
+            def call():
+                return taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs)
+            assert torch.equal(call(), ref.photonic_gemm_reference(
+                x, w, noise, cfg, fs)), (numerics, m, k, d)
+            prof = profile(call, 5, "taom_gemm",
+                           split=taom_gemm.KERNELS + ("taom_gemm_kernel",),
+                           want={"kernel_launches_per_run":
+                                 taom_kernels(m, k, d, cfg)})
+            kernels = prof["kernel_launches_per_run"]
+            assert kernels == taom_kernels(m, k, d, cfg) <= 3, (
+                numerics, m, k, d, prof)
+            assert prof["split_launches_per_run"]["taom_gemm_kernel"] == 0
+            out[numerics].append(kernels)
+            del noise
+    log("[kernel] Table-4 GEMM shapes " + json.dumps(TABLE4_SHAPES) +
+        " at 8 bits, bit-equal to the plain version; TAOM kernels a call "
+        "(profiled, == the plan's, no float32 body): " + json.dumps(out))
+    return out
+
+
 def table4_gemms(t4, params, x, numerics: str) -> list:
     """The four GEMMs' inputs (a (M, K), w) of one Table-4 forward under
     ``numerics``, recorded around ``t4.gemm_under``'s matmul (the plain
@@ -2213,16 +2474,22 @@ def table4_gemms(t4, params, x, numerics: str) -> list:
 
 def table4_phase(dev, t4, params) -> dict:
     """The Table-4 evaluation's photonic columns through the TAOM kernel
-    on the card (8 bits: the float32 body, HEANA at N = 2, MAW at N = 1,
-    int8 at N = 83), on ``evaluate``'s 512 images: for each column the
+    on the card (8 bits: the fused route on two s8 planes; int8 at N = 83
+    on the tensor cores, HEANA at N = 2 and MAW at N = 1 through the
+    small-chunk kernel), on ``evaluate``'s 512 images: for each column the
     kernel route's logits bit-equal to ``impl="ref"`` with the same noise
     (every GEMM draws from a fresh generator seeded 7, as ``evaluate``
     does), each GEMM's largest integer accumulation max |xq| @ |wq|
-    printed beside 2^24; then each GEMM's kernel route (quantize, body,
-    rescale; noise pre-drawn) and plain route timed (CUDA graph replay)
-    beside the bound (x, w, the output and the noise once at 3.35 TB/s
-    against 2 M K D operations at 989 TFLOP/s bf16, ``taom_bound``: qmax
-    255 does not fit int8)."""
+    printed beside 2^24; then each GEMM's kernel route (noise pre-drawn),
+    its float32 route (PyTorch's quantize, the float32 body, rescale: the
+    route before this design; both hand the kernels chunk-ADC noise as a
+    (C, M, D) copy of the draw), the fused route's kernels alone on that
+    copy, where the small-chunk kernel takes it the same GEMM on the
+    tensor cores' slot path, and its plain route timed (CUDA graph
+    replay) beside the bound (x, w, the output and the noise once at 3.35
+    TB/s against 2 M K D operations at 989 TFLOP/s bf16, ``taom_bound``:
+    qmax 255 does not fit int8; this design's floor, four s8 products an
+    operation, is ``s8x2_floor_ms``)."""
     import torch
     from repro_torch.core.photonic_gemm import generator_for, sample_noise
     from repro_torch.core.taom import quantize
@@ -2231,6 +2498,7 @@ def table4_phase(dev, t4, params) -> dict:
     out = {}
     for numerics in ("int8", "heana", "maw"):
         cfg = t4.numerics_config(numerics)
+        assert taom_gemm.taom_route(cfg) == "s8x2", cfg
         with torch.no_grad():
             got = t4.logits_under(params, x, numerics, "kernel")
             want = t4.logits_under(params, x, numerics, "ref")
@@ -2250,36 +2518,83 @@ def table4_phase(dev, t4, params) -> dict:
                 a, w, cfg, noise=noise, impl="kernel")
             plain = lambda: ops.photonic_matmul(           # noqa: E731
                 a, w, cfg, noise=noise, impl="ref")
+            fs = taom_gemm.calibrated_adc_fs(k, cfg)
+
+            def kernel_noise():
+                # ops.photonic_matmul hands the kernels chunk-ADC noise as
+                # (C, M, D): a copy of the (M, C, D) draw every call.
+                return (noise.movedim(-2, 0).contiguous()
+                        if noise is not None and noise.dim() == 3
+                        else noise)
+
+            def f32_route():
+                xq_, sx_ = quantize(a, cfg.bits)
+                wq_, sw_ = quantize(w, cfg.bits, axis=0)
+                acc = taom_gemm.taom_gemm_quantized(
+                    xq_.contiguous(), wq_.contiguous(), kernel_noise(), cfg,
+                    fs)
+                return (acc * (sx_ * sw_)).to(a.dtype)
+
+            # The kernels alone on the (C, M, D) noise; and the same GEMM on
+            # the tensor cores' slot path, one 32-deep slot a chunk: what
+            # the small-chunk kernel is measured against.
+            knoise = kernel_noise()
+            kernels = lambda: taom_gemm.taom_gemm_fused(   # noqa: E731
+                a, w, knoise, cfg, fs)
+            slot = lambda: taom_gemm.taom_gemm_fused(      # noqa: E731
+                a, w, knoise, cfg, fs, _plan=taom_gemm.int8_plan(
+                    m, k, d, cfg.dpe_size, planes=2, small=False))
             with torch.no_grad():
-                assert torch.equal(route(), plain()), (numerics, m, k, d)
+                want = plain()
+                assert torch.equal(route(), want), (numerics, m, k, d)
+                assert torch.equal(f32_route(), want), (numerics, m, k, d)
+                assert torch.equal(kernels(), want), (numerics, m, k, d)
+                assert torch.equal(slot(), want), (numerics, m, k, d)
+                plan = taom_gemm.int8_plan(m, k, d, cfg.dpe_size, planes=2)
                 row = {"m": m, "k": k, "d": d,
                        "chunks": -(-k // cfg.dpe_size),
+                       "small": plan["small"],
                        "kernel_ms": device_ms(route, TABLE4_ITERS,
                                               TABLE4_REPLAYS),
+                       "kernels_ms": device_ms(kernels, TABLE4_ITERS,
+                                               TABLE4_REPLAYS),
+                       "f32_route_ms": device_ms(f32_route, TABLE4_ITERS,
+                                                 TABLE4_REPLAYS),
                        "plain_ms": device_ms(plain, TABLE4_ITERS,
                                              TABLE4_REPLAYS)}
+                row["slot_ms"] = (device_ms(slot, TABLE4_ITERS,
+                                            TABLE4_REPLAYS)
+                                  if plan["small"] else row["kernels_ms"])
             row.update(taom_bound(m, k, d, 4, 0 if noise is None
-                                  else noise.numel(),
-                                  int8=taom_gemm.int8_route(cfg)))
+                                  else noise.numel(), int8=False))
             rows.append(row)
-            del noise
+            del noise, knoise
         out[numerics] = {
             "dpe_size": cfg.dpe_size, "noise": cfg.noise_enabled,
-            "kernel_ms": sum(r["kernel_ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            **{key: sum(r[key] for r in rows) for key in (
+                "kernel_ms", "kernels_ms", "slot_ms", "f32_route_ms",
+                "plain_ms", "bound_ms", "s8x2_floor_ms")},
             "max_int_sum": sums, "gemms": rows}
         log(f"[examples] Table-4 {numerics} (N = {cfg.dpe_size}, noise "
             f"{'on' if cfg.noise_enabled else 'off'}), 512 images: kernel "
             f"route logits bit-equal to impl='ref'; max |xq| @ |wq| per "
             f"GEMM {[int(v) for v in sums]} (2^24 = {int(EXACT_LIMIT)}); "
-            f"per forward kernel route {out[numerics]['kernel_ms']:.4f} ms, "
-            f"plain {out[numerics]['plain_ms']:.4f} ms, bound "
-            f"{out[numerics]['bound_ms']:.5f} ms (device times, CUDA graph "
-            f"replay); per GEMM " + json.dumps(
-                [{key: r[key] for key in ("m", "k", "d", "chunks",
-                                          "kernel_ms", "plain_ms",
-                                          "bound_ms", "bound_by")}
+            f"per forward kernel route {out[numerics]['kernel_ms']:.4f} ms "
+            f"(the fused route on two s8 planes; its kernels alone on "
+            f"(C, M, D) noise {out[numerics]['kernels_ms']:.4f} ms, on the "
+            f"tensor cores' slot path {out[numerics]['slot_ms']:.4f} ms), "
+            f"float32 route "
+            f"{out[numerics]['f32_route_ms']:.4f} ms, plain "
+            f"{out[numerics]['plain_ms']:.4f} ms, bound "
+            f"{out[numerics]['bound_ms']:.5f} ms (this design's floor "
+            f"computed at four s8 products "
+            f"{out[numerics]['s8x2_floor_ms']:.5f}; device times, CUDA "
+            f"graph replay); per GEMM " + json.dumps(
+                [{key: r[key] for key in ("m", "k", "d", "chunks", "small",
+                                          "kernel_ms", "kernels_ms",
+                                          "slot_ms", "f32_route_ms",
+                                          "plain_ms", "bound_ms",
+                                          "bound_by")}
                  for r in rows]))
         torch.cuda.empty_cache()
     return out
@@ -2301,6 +2616,7 @@ def examples_phase(dev) -> dict:
     def run(label, name, argv):
         out, launches[label], secs[label], held[label] = run_example(name,
                                                                      argv)
+        note_routes(f"examples/{label}")
         return out
 
     out = run("quickstart", "quickstart", [])
@@ -2856,6 +3172,7 @@ def _dist_serving(dev, entries) -> dict:
         got = dp.infer(x)
         _sync(dev)
     row = {"launches": counts()}
+    note_routes("resnet_mini data-parallel")
     row["held"] = hold_calls("data-parallel serving", calls, captured)
     assert row["held"] or dev.type != "cuda"
     assert torch.equal(got, one.infer(x))
@@ -2986,6 +3303,130 @@ def dist_serving_only() -> int:
     return 0
 
 
+# The Table-4 forward's GEMMs (M, K, D), and the chunk sizes the
+# small-chunk kernel is timed at against the tensor cores' slot path.
+TABLE4_SHAPES = ((131072, 27, 16), (32768, 144, 32), (8192, 288, 32),
+                 (512, 512, 10))
+CHOICE_NS = (2, 4, 8, 16, 32)
+
+
+def taom_choices() -> int:
+    """``--taom-choices``: the measurements behind two of ``int8_plan``'s
+    choices, on the Table-4 forward's four GEMMs (random operands, float32),
+    at 7 bits (one s8 plane) and 8 (two), every variant bit-equal to the
+    plain version and timed by CUDA graph replay.
+
+    (a) How the GEMM gets x where it has one column tile: quantized on
+        load (x one element off 16 bytes, so no 16-byte loads of x), the
+        default plan, and quantized once into planes by a third launch
+        (``x_once``); INT_QUANT at N 83, noise off (the int8 column).
+        Then the default plan's sum over resnet_mini's 13 served GEMMs at
+        batch 32 (6-bit HEANA, noise off, the plan's tiles: phase 2's
+        forward), the 7-bit route's main path.
+    (b) Short chunks: the small-chunk kernel on the CUDA cores against the
+        tensor cores' slot path (a 32-deep slot a chunk) at each N of
+        ``CHOICE_NS`` (the small kernel up to ``SMALL_N``), HEANA with its
+        (M, D) noise and MAW with its (C, M, D) noise, a forward's sum.
+
+    Prints each reading and writes them to chiprun_out/taom_choices.json."""
+    import torch
+    from repro_torch.core.types import Backend, PhotonicConfig
+    from repro_torch.kernels import ref, taom_gemm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    taom_gemm.build()
+    log(f"[choices] taom_gemm built in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ops_ = [(torch.randn((m, k), generator=gen, device=dev),
+             torch.randn((k, d), generator=gen, device=dev))
+            for m, k, d in TABLE4_SHAPES]
+
+    def timed(x, w, noise, cfg, force=None):
+        fs = taom_gemm.calibrated_adc_fs(x.shape[1], cfg)
+        planes = 1 if taom_gemm.taom_route(cfg) == "int8" else 2
+        plan = (taom_gemm.int8_plan(*x.shape, w.shape[1], cfg.dpe_size,
+                                    planes=planes, **force)
+                if force is not None else None)
+        fn = lambda: taom_gemm.taom_gemm_fused(            # noqa: E731
+            x, w, noise, cfg, fs, _plan=plan)
+        assert torch.equal(fn(), ref.photonic_gemm_reference(
+            x, w, noise, cfg, fs)), (tuple(x.shape), cfg, force)
+        return device_ms(fn, TABLE4_ITERS, TABLE4_REPLAYS)
+
+    out = {"card": card_line(), "x_modes": [], "small_n": []}
+    for bits in (7, 8):
+        cfg = PhotonicConfig(backend=Backend.INT_QUANT, bits=bits,
+                             dpe_size=83, noise_enabled=False)
+        for (m, k, d), (x, w) in zip(TABLE4_SHAPES, ops_):
+            plan = taom_gemm.int8_plan(m, k, d, 83,
+                                       planes=1 if bits == 7 else 2)
+            buf = torch.empty(x.numel() + 1, device=dev)
+            x_off = buf[1:].view(m, k).copy_(x)
+            row = {"bits": bits, "m": m, "k": k, "d": d,
+                   "pieces": plan["w_bytes"] // plan["slot"],
+                   "tiles": plan["grid"][1], "x_once": plan["x_once"],
+                   "on_load_ms": timed(x_off, w, None, cfg),
+                   "default_ms": timed(x, w, None, cfg),
+                   "once_ms": timed(x, w, None, cfg, {"x_once": True})}
+            out["x_modes"].append(row)
+            log(f"[choices] x at one column tile: {json.dumps(row)}")
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.types import Dataflow
+    from repro_torch.exec import PlanCache, plan_for_network
+    from repro_torch.models.zoo_cnn import ZOO
+    model = ZOO["resnet_mini"]
+    plan = plan_for_network(
+        model.init_params(torch.Generator().manual_seed(0), device="cpu"),
+        pm.AcceleratorConfig.equal_area("heana", Dataflow.OS, 1.0),
+        batch=BATCH, in_hw=model.in_hw, lowering=model.graph,
+        cache=PlanCache())
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=6, dpe_size=83,
+                         noise_enabled=False)
+    per_gemm = []
+    for lp in plan.layers:
+        x = torch.randn((lp.c, lp.k), generator=gen, device=dev)
+        w = torch.randn((lp.k, lp.d), generator=gen, device=dev)
+        fs = taom_gemm.calibrated_adc_fs(lp.k, cfg)
+        fn = lambda: taom_gemm.taom_gemm_fused(            # noqa: E731
+            x, w, None, cfg, fs, block_d=lp.tile.block_d)
+        assert torch.equal(fn(), ref.photonic_gemm_reference(
+            x, w, None, cfg, fs)), lp.name
+        per_gemm.append(device_ms(fn))
+    out["resnet_mini_ms"] = sum(per_gemm)
+    out["resnet_mini_gemm_ms"] = per_gemm
+    log(f"[choices] resnet_mini forward, 13 GEMMs at 6 bits: "
+        f"{out['resnet_mini_ms']:.5f} ms {per_gemm}")
+    for bits in (7, 8):
+        for backend in (Backend.HEANA, Backend.MAW):
+            for n in CHOICE_NS:
+                cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=n,
+                                     adc_bits=12, noise_enabled=True)
+                row = {"bits": bits, "backend": backend.value, "n": n,
+                       "slot_ms": 0.0, "small_ms": 0.0
+                       if n <= taom_gemm.SMALL_N else None}
+                for (m, k, d), (x, w) in zip(TABLE4_SHAPES, ops_):
+                    c = -(-k // n)
+                    noise = torch.randn(
+                        (c, m, d) if backend == Backend.MAW else (m, d),
+                        generator=gen, device=dev)
+                    row["slot_ms"] += timed(x, w, noise, cfg,
+                                            {"small": False})
+                    if row["small_ms"] is not None:
+                        row["small_ms"] += timed(x, w, noise, cfg,
+                                                 {"small": True})
+                    del noise
+                out["small_n"].append(row)
+                log(f"[choices] a Table-4 forward, small-chunk kernel "
+                    f"against the slot path: {json.dumps(row)}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "taom_choices.json"),
+              "w") as f:
+        json.dump(out, f, indent=1)
+    log(f"[choices] {out['card']}; {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         print("chip_smoke: src/repro_torch is not beside this script — run "
@@ -3000,12 +3441,15 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if sys.argv[1:] == ["--dist-serving"]:
         return dist_serving_only()
+    if sys.argv[1:] == ["--taom-choices"]:
+        return taom_choices()
     from repro_torch.core import perf_model as pm
     from repro_torch.core.taom import quantize
     from repro_torch.core.types import Backend, Dataflow, PhotonicConfig
     from repro_torch.exec import (MicroBatcher, ServingEngine, execute_cnn,
                                   trace_count)
-    from repro_torch.kernels import flash_attention, ref, ssd_scan, taom_gemm
+    from repro_torch.kernels import (flash_attention, ops, ref, ssd_scan,
+                                     taom_gemm)
     from repro_torch.models.zoo_cnn import ZOO
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3094,17 +3538,21 @@ def main() -> int:
     log(f"[kernel] ({m}, {k}, {d}) equal at tile widths "
         f"{taom_gemm.kernel_tile(d, bd)} and {taom_gemm.kernel_tile(d, 8)}")
 
-    # The fused int8 route (bits <= 7) against its plain version
-    # (quantize, chunked GEMM, rescale): every plan shape and the photonic
-    # LM's, both policies, noise on and off, float32 and bf16 x.
+    # The fused route against its plain version (quantize, chunked GEMM,
+    # rescale), on one s8 plane (6 bits) and on two (8 bits): every plan
+    # shape and the photonic LM's, both policies, noise on and off,
+    # float32 and bf16 x.
     fused_cases = sorted({(m, k, d, bd) for _, m, k, d, _, bd in path})
     fused_cases += [(512, k, d, 128) for _, _, k, d in TAOM_LM_SHAPES]
-    n_fused = 0
+    n_fused = {6: 0, 8: 0}
     for m, k, d, bd in fused_cases:
-        for backend in (Backend.HEANA, Backend.AMW):
-            cfg = PhotonicConfig(backend=backend, bits=6, dpe_size=83,
+        for backend, bits in ((Backend.HEANA, 6), (Backend.AMW, 6),
+                              (Backend.HEANA, 8), (Backend.AMW, 8)):
+            cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=83,
                                  noise_enabled=True)
-            assert cfg.qmax ** 2 * min(k, 83) < EXACT_LIMIT
+            assert cfg.qmax ** 2 * 83 < EXACT_LIMIT
+            assert taom_gemm.taom_route(cfg) == ("int8" if bits == 6
+                                                 else "s8x2")
             fs = taom_gemm.calibrated_adc_fs(k, cfg)
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
@@ -3116,10 +3564,41 @@ def main() -> int:
                     torch.cuda.synchronize()
                     err = (got.float() - want.float()).abs().max().item()
                     max_err = max(max_err, err)
-                    assert err == 0.0, (m, k, d, backend, dtype, err)
-                    n_fused += 1
-    log(f"[kernel] fused int8 route: {n_fused} cases bit-equal to the "
-        f"plain version (quantize, chunked GEMM, rescale)")
+                    assert err == 0.0, (m, k, d, backend, bits, dtype, err)
+                    n_fused[bits] += 1
+    log(f"[kernel] fused route: {n_fused[6]} cases on one s8 plane (6 "
+        f"bits) and {n_fused[8]} on two (8 bits) bit-equal to the plain "
+        f"version (quantize, chunked GEMM, rescale)")
+    # The float32 body is still the route of 9 bits, and of 8 bits where a
+    # chunk's psum could pass 2^24 (N 259): through ops.photonic_matmul,
+    # bit-equal to impl="ref" where the inputs' integer sums stay below
+    # 2^24 (asserted).
+    n_body = 0
+    for (m, k, d), bits, n in (((2048, 144, 16), 9, 83),
+                               ((1000, 300, 37), 8, 259)):
+        for backend in (Backend.HEANA, Backend.AMW):
+            cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=n,
+                                 noise_enabled=True)
+            assert taom_gemm.taom_route(cfg) == "float32"
+            x = torch.randn((m, k), generator=gen, device=dev)
+            w = torch.randn((k, d), generator=gen, device=dev)
+            big = (quantize(x, bits)[0].abs().double() @
+                   quantize(w, bits, axis=0)[0].abs().double()).max().item()
+            assert big < EXACT_LIMIT, (m, k, d, bits, n, big)
+            zero_counts()
+            got = ops.photonic_matmul(
+                x, w, cfg, impl="kernel",
+                generator=torch.Generator(device=dev).manual_seed(n_body))
+            assert taom_gemm.ROUTE_LAUNCHES["float32"] == 1
+            want = ops.photonic_matmul(
+                x, w, cfg, impl="ref",
+                generator=torch.Generator(device=dev).manual_seed(n_body))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, k, d, bits, n, backend)
+            n_body += 1
+    log(f"[kernel] float32 body: {n_body} GEMMs at 9 bits (N 83) and 8 "
+        f"bits at N 259 through ops.photonic_matmul bit-equal to "
+        f"impl='ref'")
 
     # Times at the main path's shapes, tiles and config (6-bit HEANA,
     # noise off: no noise tensor is read, as on the path), then at the
@@ -3135,10 +3614,12 @@ def main() -> int:
         w = torch.randn((k, d), generator=gen, device=dev).bfloat16()
         lm_rows.append(taom_times(name, x, w, main_cfg, 128, 128,
                                   unaligned=True))
+    table4_kernels = table4_kernel_counts(dev)
     per_forward = {key: sum(r[key] for r in rows) for key in (
         "fused_ms", "f32_route_ms", "f32_body_ms", "plain_ms", "matmul_ms",
         "bound_ms", "bytes_ms", "ops_ms", "fused_call_ms",
-        "f32_route_call_ms")}
+        "f32_route_call_ms", "s8x2_ms", "s8x2_plain_ms", "s8x2_bound_ms",
+        "s8x2_floor_ms")}
     per_forward["split_ms"] = {part: sum(r["split_ms"][part] for r in rows)
                                for part in taom_gemm.KERNELS}
     log("[kernel] per batch-32 resnet_mini forward (13 GEMMs): " +
@@ -3163,6 +3644,7 @@ def main() -> int:
     served = [engine.infer(x) for x in requests]
     torch.cuda.synchronize()
     launches = taom_gemm.LAUNCHES
+    note_routes("resnet_mini")
     assert ssd_scan.LAUNCHES == flash_attention.LAUNCHES == 0, (
         ssd_scan.LAUNCHES, flash_attention.LAUNCHES)
     stats = engine.stats()
@@ -3256,7 +3738,8 @@ def main() -> int:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / REQUESTS * 1e3
-        split = profile(fn, REQUESTS, "taom_gemm", split=taom_gemm.KERNELS)
+        split = profile(fn, REQUESTS, "taom_gemm", split=taom_gemm.KERNELS,
+                        want={"kernel_launches_per_run": 2 * n_gemms})
         cnn_rows[name] = {"wall_ms": wall_ms, **split}
         log(f"[serving] bucket-32 request, {name}, {REQUESTS} runs: "
             f"{wall_ms:.4f} ms host clock unprofiled; per request under the "
@@ -3280,11 +3763,17 @@ def main() -> int:
         f"{per_forward['fused_ms']:.5f} ms in phase 2 (CUDA graph replay "
         f"at the same shapes and tiles)")
 
+    log(f"[time] phases 1-3: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
+
     # -- 4. SSD kernel vs plain version on the card ---------------------------
     ssd = ssd_phase(dev)
 
     # -- 5. mamba2-130m served at full width ----------------------------------
     lm = lm_phase(dev)
+
+    log(f"[time] phases 1-5: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
 
     # -- 6. flash-attention kernel vs plain version on the card ---------------
     flash = flash_phase(dev)
@@ -3292,17 +3781,29 @@ def main() -> int:
     # -- 7. qwen2-0.5b served at full width: this slice's path ---------------
     qwen = qwen_phase(dev)
 
+    log(f"[time] phases 1-7: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
+
     # -- 8-10. the hybrid, VLM and encoder-decoder families at full width -----
     families = {arch: family_phase(dev, tag, arch, b, p)
                 for tag, arch, b, p in FAMILIES}
+
+    log(f"[time] phases 1-10: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
 
     # -- 11. the moe family: deepseek-v2-236b, then deepseek-v3-671b, at full
     # width, cut in depth, one model at a time -----------------------------
     families[MOE_ARCH] = moe_phase(dev)
     families[MOE_V3_ARCH] = moe_v3_phase(dev)
 
+    log(f"[time] phases 1-11: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
+
     # -- 12. training on the card -------------------------------------------
     trained = train_phase(dev)
+
+    log(f"[time] phases 1-12: {time.perf_counter() - t_start:.1f} s "
+        f"host clock")
 
     # -- 13. the ten examples on the card ------------------------------------
     examples = examples_phase(dev)
@@ -3332,6 +3833,13 @@ def main() -> int:
     held = examples["held"]
     taom_held = [held[w] for w in ("taom_gemm_quantized", "taom_gemm_fused")
                  if w in held]
+    # The TAOM launches of each path by route (int8: one s8 plane, s8x2:
+    # two, float32: the float32 body).
+    routes_by_path = {path: TAOM_ROUTES_BY_PATH.get(
+        path, dict.fromkeys(taom_gemm.ROUTES, 0)) for path in by_path}
+    for path, n in by_path.items():
+        assert sum(routes_by_path[path].values()) == n[0], (
+            path, n, routes_by_path[path])
     entry = {
         "name": "taom_gemm_quantized",
         "route": "cuda",
@@ -3343,19 +3851,27 @@ def main() -> int:
         # counts the replayed TAOM kernels: path_ms below).
         "launches": sum(n[0] for n in by_path.values()),
         "launches_by_path": {path: n[0] for path, n in by_path.items()},
+        "launches_by_route": {route: sum(r[route] for r in
+                                         routes_by_path.values())
+                              for route in taom_gemm.ROUTES},
+        "routes_by_path": {path: r for path, r in routes_by_path.items()
+                           if any(r.values())},
         "max_abs_err": max([max_err] + [r["max_abs_err"]
                                         for r in taom_held]),
         "examples_held": {w: held[w] for w in ("taom_gemm_quantized",
                                                "taom_gemm_fused")
                           if w in held},
         # Per resnet_mini forward at batch 32: the sum over its 13 GEMMs
-        # at the plan's tiles of the fused int8 route (two kernels a GEMM;
-        # split_ms by kernel from the profiler), device time (CUDA graph
-        # replay); call_ms adds the host's cost of issuing each eager call;
-        # path_ms is the profiler's time of the same 26 kernels inside
-        # served requests.  f32_route_ms is the float32 body with PyTorch's
-        # quantize and rescale around it (the route before this design,
-        # and still 8-bit operands'); f32_body_ms that kernel alone.
+        # at the plan's tiles of the fused route on one s8 plane (6 bits;
+        # two kernels a GEMM; split_ms by kernel from the profiler), device
+        # time (CUDA graph replay); call_ms adds the host's cost of issuing
+        # each eager call; path_ms is the profiler's time of the same 26
+        # kernels inside served requests.  f32_route_ms is the float32 body
+        # with PyTorch's quantize and rescale around it (the route before
+        # the fused route, and still that of bits >= 9); f32_body_ms that
+        # kernel alone.  s8x2_ms: the same 13 GEMMs at 8 bits through the
+        # fused route on two s8 planes, beside its plain route and the
+        # bound at the bf16 rate.
         "ms": per_forward["fused_ms"],
         "split_ms": per_forward["split_ms"],
         "call_ms": per_forward["fused_call_ms"],
@@ -3367,6 +3883,9 @@ def main() -> int:
                      per_forward["ops_ms"] else "operations"),
         "f32_route_ms": per_forward["f32_route_ms"],
         "f32_body_ms": per_forward["f32_body_ms"],
+        "s8x2_ms": per_forward["s8x2_ms"],
+        "s8x2_plain_ms": per_forward["s8x2_plain_ms"],
+        "s8x2_bound_ms": per_forward["s8x2_bound_ms"],
         # No single PyTorch call computes this function (quantized GEMM
         # with per-chunk noise and ADC rounding).
         "library_ms": None,
@@ -3375,25 +3894,42 @@ def main() -> int:
                        "single PyTorch call, not the same function",
         "per": "one resnet_mini forward at batch 32 (13 GEMMs)",
         # The photonic mamba2-130m GEMMs, per call (bf16, M 4000).
+        # fused_on_load_ms: x quantized on load in every column tile instead
+        # of once.
         "lm": {r["gemm"]: {key: r[key] for key in (
-            "m", "k", "d", "fused_ms", "split_ms", "fused_sync_ms",
-            "f32_route_ms",
+            "m", "k", "d", "kernels", "fused_ms", "split_ms",
+            "fused_on_load_ms", "fused_sync_ms", "s8x2_ms", "f32_route_ms",
             "f32_body_ms", "plain_ms", "bound_ms", "bound_by")}
             for r in lm_rows},
         "lm_prefill_ms": lm["photonic"]["kernel_ms_per_run"],
         # Photonic QAT's GEMMs (mamba2-130m, 8 x 256 tokens, 8-bit HEANA:
-        # the float32 body), per call: the route a training forward takes
-        # and the body alone, device time, beside the bound at the bf16
-        # rate; launches are the QAT path's 5 steps.
+        # the fused route on two s8 planes), per call: the route a
+        # training forward takes, the same with x quantized on load, the
+        # float32 route before it and its body alone, device time, beside
+        # the bound at the bf16 rate; kernels: the profiler's count a call;
+        # launches are the QAT path's 5 steps.  qat_step: one profiled QAT
+        # step (its TAOM count read, not held: ``profile``).
         "qat": {r["gemm"]: {key: r[key] for key in (
-            "m", "k", "d", "route_ms", "body_ms", "plain_ms", "bound_ms",
-            "bound_by")} for r in trained["qat"]["gemms"]},
+            "m", "k", "d", "kernels", "route_ms", "on_load_ms",
+            "f32_route_ms", "body_ms", "plain_ms", "bound_ms", "bound_by")}
+            for r in trained["qat"]["gemms"]},
+        "qat_step": {key: trained["qat"]["profile"][key] for key in (
+            "device_busy_ms_per_run", "device_idle_share",
+            "device_kernels_per_run", "kernel_ms_per_run",
+            "kernel_launches_per_run", "split_ms_per_run")},
         # The Table-4 evaluation's photonic columns (phase 13: 8 bits, the
-        # float32 body; HEANA N 2, MAW N 1, int8 N 83), per forward of 512
-        # images: the kernel route and the plain route, device time,
-        # beside the bound (noise bytes included).
+        # fused route on two s8 planes; HEANA N 2 and MAW N 1 through the
+        # small-chunk kernel, int8 N 83 on the tensor cores), per forward
+        # of 512 images: the kernel route, its kernels alone, the slot path
+        # (the tensor cores at N 2 and 1), the float32 route before it and
+        # the plain route, device time, beside the bound (noise bytes
+        # included).
+        # kernels: the profiler's count a call at each Table-4 GEMM shape
+        # (phase 2).
+        "table4_kernels": table4_kernels,
         "table4": {numerics: {key: row[key] for key in (
-            "dpe_size", "noise", "kernel_ms", "plain_ms", "bound_ms")}
+            "dpe_size", "noise", "kernel_ms", "kernels_ms", "slot_ms",
+            "f32_route_ms", "plain_ms", "bound_ms")}
             for numerics, row in examples["table4"].items()},
     }
     bh, l, p, s, q, _ = SSD_SHAPES[0]

@@ -6,8 +6,9 @@ design point — HEANA (BPCA analog carry) vs MAW (per-chunk ADC) vs ideal
 int8 — and reports the Table-4-style accuracy drops, plus the perf model's
 FPS/FPS-per-W for the same accelerators on the paper's four CNNs.
 
-On the card every photonic GEMM runs the TAOM kernel (at 8 bits its
-float32 body; N = 2 for HEANA and N = 1 for MAW at 1 GS/s).
+On the card every photonic GEMM runs the TAOM kernel (at 8 bits its fused
+route on two s8 planes; N = 2 for HEANA and N = 1 for MAW at 1 GS/s, both
+through its small-chunk kernel).
 
   PYTHONPATH=src python examples_torch/heana_cnn_inference.py
   PYTHONPATH=src python examples_torch/heana_cnn_inference.py --device cpu

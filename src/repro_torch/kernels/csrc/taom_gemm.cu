@@ -4,19 +4,25 @@
 // Replaces the Pallas TPU kernel repro.kernels.taom_gemm.taom_gemm_quantized
 // (bodies _kernel_analog_carry and _kernel_chunk_adc).  Two routes:
 //
-//   * the fused int8 route (taom_gemm_int8, operands of bits <= 7, so
-//     |q| <= qmax <= 127): the whole of the reference's quantize -> TAOM
-//     GEMM -> rescale in two launches.  taom_gemm_absmax_kernel writes
-//     per-block partial maxima of |x|, every column's weight scale and w
-//     quantized once to s8 in the GEMM's staged layout (k-contiguous,
-//     chunks cut into zero-padded pieces); taom_gemm_int8_kernel reduces
-//     the partials to x's scale, quantizes x into shared memory as s8,
-//     multiplies on the tensor cores (mma.sync m16n8k32 s8 x s8 -> s32,
-//     exact), applies the policy per chunk and rescales and casts in its
-//     epilogue.
-//   * the float32 body (taom_gemm_f32, any bits): pre-quantized,
-//     integer-valued float32 operands on the CUDA cores; the caller
-//     quantizes and rescales.
+//   * the fused s8 route (taom_gemm_int8): the whole of the reference's
+//     quantize -> TAOM GEMM -> rescale in two launches, or three.  Operands
+//     of bits <= 7 (|q| <= qmax <= 127) are one s8 plane; 8-bit operands
+//     (|q| <= 255) with N * qmax^2 < 2^24 are two (below).
+//     taom_gemm_absmax_kernel writes per-block partial maxima of |x|, every
+//     column's weight scale and w quantized once to s8 planes in the GEMM's
+//     staged layout (k-contiguous, chunks cut into zero-padded pieces);
+//     where the GEMM has more than one column tile or K has four pieces or
+//     more (and staging does not inflate x), taom_gemm_quant_x_kernel
+//     quantizes x once into s8 planes of the same layout;
+//     taom_gemm_int8_kernel reduces the partials to x's scale, quantizes x
+//     into shared memory (or copies its planes in), multiplies on the
+//     tensor cores (mma.sync m16n8k32 s8 x s8 -> s32, exact), applies the
+//     policy per chunk and rescales and casts in its epilogue; for chunks
+//     of at most kSmallMaxN positions taom_gemm_small_kernel does the same
+//     on the CUDA cores (below).
+//   * the float32 body (taom_gemm_f32, any bits; the route of bits >= 9 and
+//     of 8 bits at N >= 259): pre-quantized, integer-valued float32
+//     operands on the CUDA cores; the caller quantizes and rescales.
 //
 // Both take pre-sampled standard-normal noise: (M, D) for analog carry,
 // (C, M, D) for chunk-ADC, C = ceil(K / N) — or a null pointer when noise
@@ -28,25 +34,40 @@
 //   chunk-ADC (AMW, MAW): out = sum_c adc(psum_c + coef * noise[c, m, d])
 //                                             (coef = f32(sigma))
 //   adc(v) = clamp(rint(v * inv_step), -hi, hi) * step
-//   int8 route only: y = out * (sx * sw[d]), cast to x's type, with
+//   s8 route only: y = out * (sx * sw[d]), cast to x's type, with
 //   sx = max(max|x|, eps) * f32(1/qmax) (per tensor), sw[d] the same over
 //   column d of w, and q = clamp(rint(v / s), -qmax, qmax) (IEEE division).
 //
-// Bound on this card: memory.  At the main path's shapes (K <= 144,
-// D <= 64; and the photonic LM's K 768-1536, D 768-3352) a GEMM does
-// 2*K*D operations for every row of x it reads, below the card's
-// operation-per-byte balance at int8 rates, so the least time is bytes /
-// bandwidth: x, w and the output once (plus the noise when it is on).
-// What the designs do about it:
-//   * int8 route: quantize and rescale run inside the two kernels (the
-//     unfused route makes ~16 elementwise passes over x, w and the output);
-//     the tile's height is chosen so that a GEMM launches at least 2 x 132
+// Two s8 planes (8-bit operands).  Each quantized value q in [-255, 255] is
+// split as q = 16 h + l with h = q >> 4 in [-16, 15] and l = q & 15 in
+// [0, 15]; both fit s8.  A chunk's psum is then
+//     sum qx qw = 256 sum hx hw + 16 sum (hx lw + lx hw) + sum lx lw,
+// three s32 sums of four mma products (the two cross products share one
+// accumulator).  Each is exact: |hx hw| <= 256, |hx lw + lx hw| <= 480 and
+// lx lw <= 225, so over N <= 258 positions every sum and the combination
+// 256 a + 16 b + c stay far inside s32.  The combined psum is the exact
+// integer sum qx qw, |psum| <= N * 255^2 < 2^24, so one __int2float_rn per
+// chunk gives the reference's float32 chunk dot product, which is that
+// same integer (every partial sum of integers below 2^24 is exact in
+// float32, in any order).  No float rounding of a tensor-core product or
+// sum is relied on (PTX does not specify how an MMA rounds its float32
+// accumulation; s8 -> s32 is exact).
+//
+// Bound on this card.  At the main path's shapes (K <= 144, D <= 64; and
+// the photonic LM's K 768-1536, D 768-3352) a GEMM does 2*K*D operations
+// for every row of x it reads, below the card's operation-per-byte balance
+// at int8 rates, so the least time is bytes / bandwidth: x, w and the
+// output once (plus the noise when it is on).  For 8-bit operands the
+// least time counts 2 M K D operations at the bf16 rate (an 8-bit integer
+// is exact in bf16); this design does four s8 products for each, so its
+// own floor is twice that.  What the designs do about it:
+//   * s8 route: quantize and rescale run inside the kernels (the unfused
+//     route makes ~16 elementwise passes over x, w and the output); the
+//     tile's height is chosen so that a GEMM launches at least 2 x 132
 //     blocks where M allows; w is quantized once and copied into shared
 //     memory with cp.async, the next piece while this one is multiplied,
-//     and so are x's raw rows where they are 16-byte aligned and K has 3
-//     pieces or more; the chunk sums stay in registers.  Each tile still
-//     quantizes its own copy of x's rows (once per column tile), which
-//     holds it above the bound at the LM's widths.
+//     and so are x's quantized planes where they were written once; the
+//     chunk sums stay in registers.
 //   * float32 body: one block owns an output tile as wide as D (up to 64
 //     columns), so every row of xq is read from device memory once; the
 //     chunk loop runs inside the block and the BPCA accumulator stays in
@@ -56,7 +77,7 @@
 // float operation (__fmul_rn / __fadd_rn / __fdiv_rn, rintf = round half to
 // even, and the file is built with --fmad=false), so both routes equal the
 // plain PyTorch version bit for bit wherever the integer chunk psums stay
-// below 2^24.  The int8 route's s32 chunk sums are exact; converted once to
+// below 2^24.  The s8 route's s32 chunk sums are exact; converted once to
 // float32 (__int2float_rn) they are the reference's float32 chunk dot
 // products, which are exact integers below 2^24.  Inside a chunk the float32
 // body accumulates with fmaf: integer products and sums below 2^24 are exact
@@ -66,6 +87,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -210,13 +232,23 @@ void launch(const float* x, const float* w, const float* noise, float* out,
 }
 
 // ---------------------------------------------------------------------------
-// The fused int8 route.
+// The fused s8 route (one s8 plane for bits <= 7, two for 8 bits).
 // ---------------------------------------------------------------------------
 constexpr int kColGroup = 32;       // w columns per absmax block
 constexpr int kMaxWarps = 4;        // GEMM block: 1, 2 or 4 row warps
 constexpr int kWarpCols = 64;       // a warp's columns at most
 constexpr int kItemsInFlight = 8;   // x words a thread loads at once
 constexpr int kSlotPad = 16;        // bytes past each staged row (below)
+constexpr int kQuantXThreads = 256;
+constexpr int kSmallThreads = 256;  // small-chunk kernel: threads a block
+constexpr int kSmallStepK = 64;     // its K positions staged at once
+constexpr int kSmallMaxN = 8;       // its longest chunk (taom_gemm.SMALL_N)
+
+// How the GEMM kernel gets x's s8 planes: quantized from device memory
+// into shared memory as each piece is needed (kXLoad), or copied in a
+// piece ahead with cp.async from the planes taom_gemm_quant_x_kernel wrote
+// (kXStaged).
+enum XMode { kXLoad = 0, kXStaged = 1 };
 
 // Elements of one 16-byte vector.
 template <typename T> struct Vec;
@@ -288,20 +320,39 @@ __device__ __forceinline__ int quant_int(float v, const Scale& sc, int qmax) {
   return min(max(q, -qmax), qmax);
 }
 
-// Four quantized values as the s8 bytes of one 32-bit word (v[0] lowest).
-__device__ __forceinline__ uint32_t quant_word(const float (&v)[4],
-                                               const Scale& sc, int qmax) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    word |= (static_cast<uint32_t>(quant_int(v[j], sc, qmax)) & 0xffu)
-            << (8 * j);
-  return word;
+// The s8 plane bytes of a quantized value: P = 1, q itself (|q| <= 127);
+// P = 2, h = q >> 4 in [-16, 15] (plane 0) and l = q & 15 in [0, 15]
+// (plane 1), q = 16 h + l.
+template <int P>
+__device__ __forceinline__ void plane_bytes(int q, uint32_t (&b)[P]) {
+  if constexpr (P == 1) {
+    b[0] = static_cast<uint32_t>(q) & 0xffu;
+  } else {
+    b[0] = static_cast<uint32_t>(q >> 4) & 0xffu;
+    b[1] = static_cast<uint32_t>(q) & 0xfu;
+  }
 }
 
-// Where K position kk of w lies in the staged layout: chunk c = kk / n is
-// cut into pieces of `slot` positions (ppc pieces a chunk), and piece i of
-// chunk c is stored at bytes [(c * ppc + i) * slot, + slot) of the column.
+// Four quantized values as the s8 bytes of one 32-bit word a plane (v[0]
+// lowest).
+template <int P>
+__device__ __forceinline__ void quant_words(const float (&v)[4],
+                                            const Scale& sc, int qmax,
+                                            uint32_t (&word)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) word[p] = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t b[P];
+    plane_bytes<P>(quant_int(v[j], sc, qmax), b);
+#pragma unroll
+    for (int p = 0; p < P; ++p) word[p] |= b[p] << (8 * j);
+  }
+}
+
+// Where K position kk lies in the staged layout: chunk c = kk / n is cut
+// into pieces of `slot` positions (ppc pieces a chunk), and piece i of
+// chunk c is stored at bytes [(c * ppc + i) * slot, + slot) of the row.
 __device__ __forceinline__ int staged_pos(int kk, int n, int slot, int ppc) {
   const int c = kk / n;
   const int within = kk - c * n;
@@ -309,25 +360,55 @@ __device__ __forceinline__ int staged_pos(int kk, int n, int slot, int ppc) {
   return (c * ppc + piece) * slot + (within - piece * slot);
 }
 
+// max |partials[i]| over the block, then x's scale max(., eps) * inv_qmax,
+// as every block of the route computes it.  red: one float a warp.
+__device__ __forceinline__ float x_scale(const float* partials,
+                                         int n_partials, float eps,
+                                         float inv_qmax, float* red,
+                                         float* out) {
+  const int tid = threadIdx.x;
+  float mx = 0.0f;
+#pragma unroll 8
+  for (int i = tid; i < n_partials; i += blockDim.x)
+    mx = nan_max(mx, partials[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((tid & 31) == 0) red[tid >> 5] = mx;
+  __syncthreads();
+  if (tid == 0) {
+    float m = red[0];
+    for (int i = 1; i < static_cast<int>(blockDim.x >> 5); ++i)
+      m = nan_max(m, red[i]);
+    *out = __fmul_rn(nan_max(m, eps), inv_qmax);
+  }
+  __syncthreads();
+  return *out;
+}
+
 // Blocks [0, n_xblocks) write partial maxima of |x| to partials.  The
 // others each own 32 columns of w: they write the columns' scales
 // sw[d] = max(max_k |w[k, d]|, eps) * inv_qmax and the quantized columns
-// as s8 rows of kp bytes in the GEMM's staged layout (staged_pos, zeros
-// past each chunk's end), through a transposing tile in shared memory so
-// that reads and writes are coalesced.  No atomics, no memset.
-template <typename XT, typename WT, int kAbsThreads>
+// as P s8 planes of (D, kp) bytes, w_plane bytes apart, in the GEMM's
+// staged layout (staged_pos, zeros past each chunk's end), through a
+// transposing tile in shared memory so that reads and writes are
+// coalesced.  No atomics, no memset.
+template <typename XT, typename WT, int kAbsThreads, int P>
 __global__ void __launch_bounds__(kAbsThreads)
 taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
                         const WT* __restrict__ w, int k, int d, int n,
                         int n_chunks, int slot, int kp, int n_xblocks,
                         float* __restrict__ partials, float* __restrict__ sw,
-                        unsigned char* __restrict__ wq, float eps,
-                        float inv_qmax, float qmax) {
+                        unsigned char* __restrict__ wq, long long w_plane,
+                        float eps, float inv_qmax, float qmax) {
   constexpr int kRowGroups = kAbsThreads / kColGroup;
   constexpr int kPerThread = 8;
   constexpr int kKTile = kPerThread * kRowGroups;   // K rows per w tile
+  // q itself: a byte for one plane, a short for two.
+  using TileT = typename std::conditional<P == 1, unsigned char,
+                                          short>::type;
   __shared__ float red[kAbsThreads];
-  __shared__ unsigned char tile[kColGroup][kKTile + 1];
+  __shared__ TileT tile[kColGroup][kKTile + 1];
   const int tid = threadIdx.x;
   float mx = 0.0f;
   if (static_cast<int>(blockIdx.x) < n_xblocks) {
@@ -408,17 +489,23 @@ taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
 #pragma unroll
     for (int u = 0; u < kPerThread; ++u)
       tile[lc][rg + u * kRowGroups] =
-          static_cast<unsigned char>(quant_int(v[u], sc, iqmax));
+          static_cast<TileT>(quant_int(v[u], sc, iqmax));
     __syncthreads();
-    // Write it out column by column, a byte a thread.
+    // Write it out column by column, a byte a thread and plane.
 #pragma unroll
     for (int u = 0; u < kPerThread; ++u) {
       const int i = tid + u * kAbsThreads;
       const int c = i / kKTile;
       const int kk = k0 + i % kKTile;
-      if (c0 + c < d && kk < k)
-        wq[static_cast<long long>(c0 + c) * kp +
-           staged_pos(kk, n, slot, ppc)] = tile[c][kk - k0];
+      if (c0 + c < d && kk < k) {
+        uint32_t b[P];
+        plane_bytes<P>(static_cast<int>(tile[c][kk - k0]), b);
+        unsigned char* dst = wq + static_cast<long long>(c0 + c) * kp +
+                             staged_pos(kk, n, slot, ppc);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          dst[p * w_plane] = static_cast<unsigned char>(b[p]);
+      }
     }
     __syncthreads();
   }
@@ -431,7 +518,52 @@ taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
     const int last = (clen - 1) / slot;
     unsigned char* dst = wq + static_cast<long long>(c0 + c) * kp +
                          (chunk * ppc + last) * slot;
-    for (int p = clen - last * slot; p < slot; ++p) dst[p] = 0;
+    for (int p = clen - last * slot; p < slot; ++p)
+#pragma unroll
+      for (int pl = 0; pl < P; ++pl) dst[pl * w_plane + p] = 0;
+  }
+}
+
+// x quantized once into P s8 planes of (M, kp) bytes, x_plane bytes apart,
+// in the staged layout w's planes have (zeros past each chunk's end): for a
+// GEMM of several column tiles, which then copy x's pieces in with
+// cp.async instead of each quantizing its own copy of x's rows.  Every
+// block reduces the partial maxima to x's scale as the GEMM does.
+template <typename XT, int P>
+__global__ void __launch_bounds__(kQuantXThreads)
+taom_gemm_quant_x_kernel(const XT* __restrict__ x, int m, int k, int n,
+                         int slot, int kp, const float* __restrict__ partials,
+                         int n_partials, float eps, float inv_qmax,
+                         float qmax, unsigned char* __restrict__ xq,
+                         long long x_plane) {
+  __shared__ float red[kQuantXThreads / 32];
+  __shared__ float sx_s;
+  const Scale sc = make_scale(x_scale(partials, n_partials, eps, inv_qmax,
+                                      red, &sx_s));
+  const int iqmax = static_cast<int>(qmax);
+  const int ppc = (n + slot - 1) / slot;
+  const int wpr = kp >> 2;                       // words a row
+  const long long words = static_cast<long long>(m) * wpr;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < words; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = i / wpr;
+    const int pos = 4 * static_cast<int>(i - r * wpr);   // staged position
+    const int piece = pos / slot;
+    const int c = piece / ppc;
+    const int within = (piece - c * ppc) * slot + (pos - piece * slot);
+    const int clen = min(n, k - c * n);
+    const XT* src = x + r * k + c * n + within;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = within + j < clen ? ld_elem(src + j) : 0.0f;
+    uint32_t word[P];
+    quant_words<P>(v, sc, iqmax, word);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      *reinterpret_cast<uint32_t*>(xq + p * x_plane + r * kp + pos) =
+          word[p];
   }
 }
 
@@ -439,24 +571,27 @@ struct Int8Args {
   const void* x;               // (M, K) XT, row-major
   const float* noise;          // see the header, or null
   void* out;                   // (M, D) XT
-  const unsigned char* wq;     // (D, kp) s8: w quantized, staged layout
+  const unsigned char* wq;     // P planes of (D, kp) s8: w, staged layout
+  const unsigned char* xq;     // kXStaged: P planes of (M, kp) s8: x
   const float* partials;       // n_partials partial maxima of |x|
   const float* sw;             // (D,) column scales of w
+  long long w_plane, x_plane;  // bytes between two planes
+  int planes;                  // s8 planes an operand, 1 or 2
   int m, k, d, n, n_chunks, chunk_adc, n_partials, kp;
   int slot;                    // staged K positions, a multiple of 32
   float coef, inv_step, step, hi, qmax, inv_qmax, eps;
 };
 
 // Stage rows [m0, m0 + rows) of x at K positions [start, start + len) into
-// xs[r * stride + p] as s8, a 32-bit word (4 positions) an item and
-// kItemsInFlight items a thread at once; zeros past len (up to slot) and
-// past M.
-template <typename T>
-__device__ __forceinline__ void stage_x(unsigned char* xs, const T* x,
-                                        long long m0, int rows, int m, int k,
-                                        int start, int len, int slot,
-                                        int stride, const Scale& sc,
-                                        int qmax) {
+// the P planes xs[p * plane + r * stride + pos] as s8, a 32-bit word (4
+// positions) an item and kItemsInFlight items a thread at once; zeros past
+// len (up to slot) and past M.
+template <typename T, int P>
+__device__ __forceinline__ void stage_x(unsigned char* xs, int plane,
+                                        const T* x, long long m0, int rows,
+                                        int m, int k, int start, int len,
+                                        int slot, int stride,
+                                        const Scale& sc, int qmax) {
   constexpr int U = kItemsInFlight;
   const int wpr = slot >> 2;
   const int items = rows * wpr;
@@ -481,8 +616,12 @@ __device__ __forceinline__ void stage_x(unsigned char* xs, const T* x,
       if (item >= items) continue;
       const int r = item / wpr;
       const int p = 4 * (item - r * wpr);
-      *reinterpret_cast<uint32_t*>(xs + r * stride + p) =
-          quant_word(v[u], sc, qmax);
+      uint32_t word[P];
+      quant_words<P>(v[u], sc, qmax, word);
+#pragma unroll
+      for (int pl = 0; pl < P; ++pl)
+        *reinterpret_cast<uint32_t*>(xs + pl * plane + r * stride + p) =
+            word[pl];
     }
   }
 }
@@ -500,71 +639,26 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
-// Start the copy of columns [d0, d0 + BD) of the quantized w's piece
-// `piece` into ws[col * stride + p] (k-contiguous: mma's .col B layout),
-// 16 bytes a cp.async.  Columns past D are never written (the caller
-// zeroes them once).  The pieces are already padded with zeros.
-template <int BD>
-__device__ __forceinline__ void copy_w_async(unsigned char* ws,
-                                             const unsigned char* wq, int d0,
-                                             int d, int kp, int piece,
-                                             int slot, int stride) {
-  const int vpc = slot >> 4;
-  const int cols = min(BD, d - d0);
-  for (int i = threadIdx.x; i < cols * vpc; i += blockDim.x) {
-    const int c = i / vpc;
-    const int q = i - c * vpc;
-    cp_async16(ws + c * stride + 16 * q,
-               wq + static_cast<long long>(d0 + c) * kp + piece * slot +
-                   16 * q);
-  }
-}
-
-// Start the copy of rows [m0, m0 + rows) of x, K positions [start, start +
-// len) widened to whole 16-byte vectors, into xr[r * rw + e] (elements):
-// position start + p lands at element (start % V) + p.  Needs x 16-byte
-// aligned and K % V == 0 (so no vector passes a row's end).
-template <typename T>
-__device__ __forceinline__ void copy_x_async(T* xr, const T* x,
-                                             long long m0, int rows, int m,
-                                             int k, int start, int len,
-                                             int rw) {
-  constexpr int V = Vec<T>::n;
-  const int a0 = start / V * V;
-  const int nv = (start + len - a0 + V - 1) / V;
-  const int live = static_cast<int>(min(static_cast<long long>(rows),
-                                        m - m0));
-  for (int i = threadIdx.x; i < live * nv; i += blockDim.x) {
-    const int r = i / nv;
-    const int q = i - r * nv;
-    cp_async16(xr + r * rw + q * V, x + (m0 + r) * k + a0 + q * V);
-  }
-}
-
-// Quantize the raw x piece in xr (copy_x_async's layout) into
-// xs[r * stride + p] as s8, a 32-bit word (4 positions) an item; zeros
-// past len (up to slot) and past M.
-template <typename T>
-__device__ __forceinline__ void quantize_x(unsigned char* xs, const T* xr,
-                                           long long m0, int rows, int m,
-                                           int start, int len, int slot,
-                                           int stride, int rw,
-                                           const Scale& sc, int qmax) {
-  constexpr int V = Vec<T>::n;
-  const int o = start % V;
-  const int wpr = slot >> 2;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < rows * wpr; i += blockDim.x) {
-    const int r = i / wpr;
-    const int p = 4 * (i - r * wpr);
-    const bool row = m0 + r < m;
-    const T* src = xr + r * rw + o + p;
-    float v[4];
+// Start the copy of piece `piece` of staged rows [r0, r0 + rows) of P
+// planes (src_plane bytes apart; a row kp bytes) into dst[p * dst_plane +
+// r * stride + pos] (k-contiguous: mma's .row A and .col B layouts), 16
+// bytes a cp.async.  Rows past `rows` are never written (the caller zeroes
+// them once).  The pieces are already padded with zeros.
+template <int P>
+__device__ __forceinline__ void copy_staged_async(
+    unsigned char* dst, int dst_plane, const unsigned char* src,
+    long long src_plane, long long r0, int rows, int kp, int piece,
+    int slot, int stride) {
+  const int vpr = slot >> 4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (row && p + j < len) ? ld_elem(src + j) : 0.0f;
-    *reinterpret_cast<uint32_t*>(xs + r * stride + p) =
-        quant_word(v, sc, qmax);
+  for (int p = 0; p < P; ++p) {
+    for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
+      const int r = i / vpr;
+      const int q = i - r * vpr;
+      cp_async16(dst + p * dst_plane + r * stride + 16 * q,
+                 src + p * src_plane + (r0 + r) * kp + piece * slot +
+                     16 * q);
+    }
   }
 }
 
@@ -578,28 +672,30 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Shared memory of one block: the s8 x tile, two s8 w tiles and, with
-// ASYNC, two raw x tiles.
-template <typename XT, int BD, bool ASYNC>
-int int8_smem_bytes(int bm, int slot) {
+// Shared memory of one block of 16 * warps rows: the s8 x tile (two with
+// kXStaged) and two s8 w tiles of tile_d columns, each P planes.
+template <int P>
+int int8_smem_bytes(int tile_d, int warps, int mode, int slot) {
+  const int bm = 16 * warps;
   const int stride = slot + kSlotPad;
-  const int raw = ASYNC ? 2 * bm * (slot + 2 * Vec<XT>::n) *
-                              static_cast<int>(sizeof(XT)) : 0;
-  return raw + (bm + 2 * BD) * stride;
+  return P * ((mode == kXStaged ? 2 : 1) * bm + 2 * tile_d) * stride;
 }
 
 // One block computes a (16 * warps) x BD output tile with warps x WN
 // warps (WN = BD / 64 for BD 128, else 1): warp (i, j) owns rows 16 i ..
 // 16 i + 15 and columns j * BD / WN .. of it, as BD / WN / 8 mma tiles.  K is
 // walked piece by piece (each chunk cut into pieces of at most `slot`
-// positions): the next piece's w (and, with ASYNC, its raw x rows) is
+// positions): the next piece's w (and, with kXStaged, its x planes) is
 // copied with cp.async into the other of two buffers while this piece is
-// quantized into s8 and summed on the tensor cores in s32; at a chunk's
-// end the s32 sums are converted and the policy applied.  Without ASYNC
-// (x not 16-byte aligned, a row not a whole number of vectors, or fewer
-// than 3 pieces) x is loaded and quantized straight from device memory.  Row stride slot + 16
-// bytes (= 16 mod 32) puts the 8 rows of a fragment load on 8 distinct
-// groups of 4 banks.
+// multiplied on the tensor cores in s32; at a chunk's end the s32 sums are
+// combined, converted and the policy applied.  With kXLoad x is loaded and
+// quantized straight from device memory, piece by piece.  Row stride slot
+// + 16 bytes (= 16 mod 32) puts the 8 rows of a fragment load on 8
+// distinct groups of 4 banks.
+//
+// P = 1: one s8 plane, one mma a tile.  P = 2: planes h and l (header);
+// four mma a tile into three sums, hh, hl + lh and ll, combined at the
+// chunk's end as 256 hh + 16 (hl + lh) + ll.
 //
 // Fragments of m16n8k32 (PTX ISA; g = lane / 4, t = lane % 4):
 //   A (16 x 32 s8, row): a[0] = row g,   k 4t..4t+3;  a[1] = row g+8, same k;
@@ -607,12 +703,12 @@ int int8_smem_bytes(int bm, int slot) {
 //   B (32 x 8 s8, col):  b[0] = col g,   k 4t..4t+3;  b[1] = col g, k 16+4t..
 //   C (16 x 8 s32):      c[0], c[1] = row g,   cols 2t, 2t+1;
 //                        c[2], c[3] = row g+8, cols 2t, 2t+1
-template <typename XT, int BD, bool ASYNC>
+template <typename XT, int BD, int MODE, int P>
 __global__ void __launch_bounds__(32 * kMaxWarps * 2)
 taom_gemm_int8_kernel(const Int8Args a) {
   constexpr int WN = BD > kWarpCols ? BD / kWarpCols : 1;
   constexpr int NT = BD / WN / 8;
-  constexpr int V = Vec<XT>::n;
+  constexpr int S = 2 * P - 1;            // s32 sums a tile
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float sw_s[BD];
   __shared__ float red[kMaxWarps * 2];
@@ -629,61 +725,60 @@ taom_gemm_int8_kernel(const Int8Args a) {
   const int t = lane & 3;
   const int bm = 16 * (warps / WN);
   const int stride = a.slot + kSlotPad;
-  const int rw = a.slot + 2 * V;
-  XT* xr[2];
-  xr[0] = reinterpret_cast<XT*>(smem);
-  xr[1] = xr[0] + (ASYNC ? bm * rw : 0);
-  unsigned char* xs = reinterpret_cast<unsigned char*>(xr[1] +
-                                                       (ASYNC ? bm * rw : 0));
-  unsigned char* ws[2] = {xs + bm * stride, xs + (bm + BD) * stride};
+  const int xplane = bm * stride;        // shared bytes of one plane
+  const int wplane = BD * stride;
+  // The two buffers of each tile are addressed by arithmetic on one base
+  // (an array of the two pointers indexed at run time would go to local
+  // memory and turn every fragment load into a generic one).
+  unsigned char* const xs0 = smem;
+  const int xs_buf = MODE == kXStaged ? P * xplane : 0;
+  unsigned char* const w0 = xs0 + (MODE == kXStaged ? 2 : 1) * P * xplane;
+  const int ws_buf = P * wplane;
   const long long m0 = static_cast<long long>(blockIdx.x) * bm;
   const int d0 = blockIdx.y * BD;
   const int ppc = (a.n + a.slot - 1) / a.slot;
+  const int wcols = min(BD, a.d - d0);
+  const int xrows = static_cast<int>(min(static_cast<long long>(bm),
+                                         a.m - m0));
 
-  // Zero both w tiles once: columns past D are never copied in.
-  for (int i = tid; i < 2 * BD * stride / 16; i += blockDim.x)
-    reinterpret_cast<uint4*>(ws[0])[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
+  // Zero the copied tiles once in a tile that passes D or M: columns past
+  // D and rows past M are never copied in.
+  if (wcols < BD || (MODE == kXStaged && xrows < bm)) {
+    unsigned char* zero0 = MODE == kXStaged ? xs0 : w0;
+    const int zero_bytes = MODE == kXStaged ? 2 * P * (xplane + wplane)
+                                            : 2 * P * wplane;
+    for (int i = tid; i < zero_bytes / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(zero0)[i] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
   // The first piece's copies fly while the scales are reduced.
-  copy_w_async<BD>(ws[0], a.wq, d0, a.d, a.kp, 0, a.slot, stride);
-  if (ASYNC)
-    copy_x_async(xr[0], x, m0, bm, a.m, a.k, 0, min(a.slot, min(a.n, a.k)),
-                 rw);
+  copy_staged_async<P>(w0, wplane, a.wq, a.w_plane, d0, wcols, a.kp, 0,
+                       a.slot, stride);
+  if (MODE == kXStaged)
+    copy_staged_async<P>(xs0, xplane, a.xq, a.x_plane, m0, xrows, a.kp, 0,
+                         a.slot, stride);
   cp_async_commit();
 
   // x's scale from the partial maxima; the tile's column scales.
-  float mx = 0.0f;
-#pragma unroll 8
-  for (int i = tid; i < a.n_partials; i += blockDim.x)
-    mx = nan_max(mx, a.partials[i]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    mx = nan_max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if (lane == 0) red[warp] = mx;
   for (int i = tid; i < BD; i += blockDim.x)
     sw_s[i] = d0 + i < a.d ? a.sw[d0 + i] : 0.0f;
-  __syncthreads();
-  if (tid == 0) {
-    float m = red[0];
-    for (int i = 1; i < warps; ++i) m = nan_max(m, red[i]);
-    sx_s = __fmul_rn(nan_max(m, a.eps), a.inv_qmax);
-  }
-  __syncthreads();
-  const float sx = sx_s;
+  const float sx = x_scale(a.partials, a.n_partials, a.eps, a.inv_qmax, red,
+                           &sx_s);
   const Scale sc = make_scale(sx);
   const int iqmax = static_cast<int>(a.qmax);
 
   float carry[NT][4];
-  int ps[NT][4];
+  int ps[S][NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       carry[j][e] = 0.0f;
-      ps[j][e] = 0;
+#pragma unroll
+      for (int s = 0; s < S; ++s) ps[s][j][e] = 0;
     }
 
-  const unsigned char* arow = xs + (wm * 16 + g) * stride + 4 * t;
+  const int arow = (wm * 16 + g) * stride + 4 * t;
   int c = 0, p0 = 0, buf = 0;
   while (c < a.n_chunks) {
     const int cs = c * a.n;
@@ -696,52 +791,67 @@ taom_gemm_int8_kernel(const Int8Args a) {
       np0 = 0;
     }
     if (nc < a.n_chunks) {
-      copy_w_async<BD>(ws[buf ^ 1], a.wq, d0, a.d, a.kp,
-                       nc * ppc + np0 / a.slot, a.slot, stride);
-      if (ASYNC) {
-        const int ns = nc * a.n + np0;
-        copy_x_async(xr[buf ^ 1], x, m0, bm, a.m, a.k, ns,
-                     min(a.slot, min(a.n, a.k - nc * a.n) - np0), rw);
-      }
+      const int npiece = nc * ppc + np0 / a.slot;
+      const int nb = buf ^ 1;
+      copy_staged_async<P>(w0 + nb * ws_buf, wplane, a.wq, a.w_plane, d0,
+                           wcols, a.kp, npiece, a.slot, stride);
+      if (MODE == kXStaged)
+        copy_staged_async<P>(xs0 + nb * xs_buf, xplane, a.xq, a.x_plane, m0,
+                             xrows, a.kp, npiece, a.slot, stride);
     }
     cp_async_commit();
-    if (!ASYNC)
-      stage_x(xs, x, m0, bm, a.m, a.k, cs + p0, len, a.slot, stride, sc,
-              iqmax);
+    if (MODE == kXLoad)
+      stage_x<XT, P>(xs0, xplane, x, m0, bm, a.m, a.k, cs + p0, len, a.slot,
+                     stride, sc, iqmax);
     cp_async_wait_one();
     __syncthreads();
-    if (ASYNC) {
-      quantize_x(xs, xr[buf], m0, bm, a.m, cs + p0, len, a.slot, stride, rw,
-                 sc, iqmax);
-      __syncthreads();
-    }
+    const unsigned char* xa = xs0 + buf * xs_buf + arow;
+    const unsigned char* wb = w0 + buf * ws_buf + (wn + g) * stride + 4 * t;
     const int ksteps = (len + 31) / 32;
+#pragma unroll 1
     for (int kk = 0; kk < ksteps; ++kk) {
-      const unsigned char* r = arow + kk * 32;
-      uint32_t af[4];
-      af[0] = *reinterpret_cast<const uint32_t*>(r);
-      af[1] = *reinterpret_cast<const uint32_t*>(r + 8 * stride);
-      af[2] = *reinterpret_cast<const uint32_t*>(r + 16);
-      af[3] = *reinterpret_cast<const uint32_t*>(r + 8 * stride + 16);
+      uint32_t af[P][4];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const unsigned char* r = xa + p * xplane + kk * 32;
+        af[p][0] = *reinterpret_cast<const uint32_t*>(r);
+        af[p][1] = *reinterpret_cast<const uint32_t*>(r + 8 * stride);
+        af[p][2] = *reinterpret_cast<const uint32_t*>(r + 16);
+        af[p][3] = *reinterpret_cast<const uint32_t*>(r + 8 * stride + 16);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const unsigned char* col =
-            ws[buf] + (wn + j * 8 + g) * stride + kk * 32 + 4 * t;
-        uint32_t bf[2];
-        bf[0] = *reinterpret_cast<const uint32_t*>(col);
-        bf[1] = *reinterpret_cast<const uint32_t*>(col + 16);
-        mma_s8(ps[j], af, bf);
+        uint32_t bf[P][2];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const unsigned char* col = wb + p * wplane + j * 8 * stride +
+                                     kk * 32;
+          bf[p][0] = *reinterpret_cast<const uint32_t*>(col);
+          bf[p][1] = *reinterpret_cast<const uint32_t*>(col + 16);
+        }
+        if constexpr (P == 1) {
+          mma_s8(ps[0][j], af[0], bf[0]);
+        } else {
+          mma_s8(ps[0][j], af[0], bf[0]);
+          mma_s8(ps[1][j], af[0], bf[1]);
+          mma_s8(ps[1][j], af[1], bf[0]);
+          mma_s8(ps[2][j], af[1], bf[1]);
+        }
       }
     }
     __syncthreads();
 
-    if (nc != c) {   // the chunk's last piece: convert, policy
+    if (nc != c) {   // the chunk's last piece: combine, convert, policy
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float v = __int2float_rn(ps[j][e]);
-          ps[j][e] = 0;
+          int sum = ps[0][j][e];
+          if constexpr (P == 2)
+            sum = sum * 256 + ps[1][j][e] * 16 + ps[S - 1][j][e];
+#pragma unroll
+          for (int s = 0; s < S; ++s) ps[s][j][e] = 0;
+          float v = __int2float_rn(sum);
           if (a.chunk_adc) {
             const long long gm = m0 + wm * 16 + g + (e >> 1) * 8;
             const int gd = d0 + wn + j * 8 + 2 * t + (e & 1);
@@ -760,57 +870,227 @@ taom_gemm_int8_kernel(const Int8Args a) {
     buf ^= 1;
   }
 
+  // The epilogue, in one straight-line copy per policy (the branches on
+  // the policy and the noise hoisted out of the loop).
   XT* __restrict__ out = static_cast<XT*>(a.out);
+  auto store = [&](const bool carry_adc, const bool carry_noise) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long gm = m0 + wm * 16 + g + (e >> 1) * 8;
-      const int col = wn + j * 8 + 2 * t + (e & 1);
-      const int gd = d0 + col;
-      if (gm >= a.m || gd >= a.d) continue;
-      const long long o = gm * a.d + gd;
-      float v = carry[j][e];
-      if (!a.chunk_adc) {
-        if (a.noise != nullptr)
-          v = __fadd_rn(v, __fmul_rn(a.coef, a.noise[o]));
-        v = adc_round(v, a.inv_step, a.step, a.hi);
+      for (int e = 0; e < 4; ++e) {
+        const long long gm = m0 + wm * 16 + g + (e >> 1) * 8;
+        const int col = wn + j * 8 + 2 * t + (e & 1);
+        const int gd = d0 + col;
+        if (gm >= a.m || gd >= a.d) continue;
+        const long long o = gm * a.d + gd;
+        float v = carry[j][e];
+        if (carry_adc) {
+          if (carry_noise)
+            v = __fadd_rn(v, __fmul_rn(a.coef, a.noise[o]));
+          v = adc_round(v, a.inv_step, a.step, a.hi);
+        }
+        st_elem(out + o, __fmul_rn(v, __fmul_rn(sx, sw_s[col])));
       }
-      st_elem(out + o, __fmul_rn(v, __fmul_rn(sx, sw_s[col])));
-    }
+  };
+  if (a.chunk_adc)
+    store(false, false);
+  else if (a.noise != nullptr)
+    store(true, true);
+  else
+    store(true, false);
 }
 
-template <typename XT, int BD, bool ASYNC>
+// Small chunks on the CUDA cores.  Where a chunk holds few K positions
+// (Table 4's N 2 and N 1), a 32-deep tensor-core slot a chunk wastes most
+// of its products, and walking K a chunk at a time through the pipeline
+// above is bound by latency.  Here each thread owns column d0 + tid % TW
+// of R rows (tid / TW + i * 256 / TW), kSmallStepK positions of whole
+// chunks (at least one) are staged at once as quantized ints (a row's
+// stride one int past the step, so the rows a warp reads fall in distinct
+// banks), and each
+// chunk's N products are summed in s32 (exact: |psum| <= N qmax^2 < 2^24,
+// converted once); every noise element is read once, consecutive threads
+// on consecutive columns.  w comes from the absmax kernel's planes in the
+// compact layout (slot = N: column d's position kk at byte d * kp + kk).
+template <typename XT, int TW, int R>
+__global__ void __launch_bounds__(kSmallThreads)
+taom_gemm_small_kernel(const Int8Args a) {
+  constexpr int RP = kSmallThreads / TW;      // rows a pass
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float sw_s[TW];
+  __shared__ float red[kSmallThreads / 32];
+  __shared__ float sx_s;
+  const XT* __restrict__ x = static_cast<const XT*>(a.x);
+  const int tid = threadIdx.x;
+  const int dd = tid % TW;
+  const int rr = tid / TW;
+  const int bm = RP * R;
+  const long long m0 = static_cast<long long>(blockIdx.x) * bm;
+  const int d0 = blockIdx.y * TW;
+  const int gd = d0 + dd;
+  const int n = a.n;
+  const int chunks_a_step = max(1, kSmallStepK / n);
+  const int step = chunks_a_step * n;          // K positions a step
+  const int xstride = step + 1;
+  int* xs = reinterpret_cast<int*>(smem);      // [bm][xstride]
+  int* ws = xs + bm * xstride;                 // [step][TW]
+
+  if (tid < TW) sw_s[tid] = gd < a.d ? a.sw[gd] : 0.0f;
+  const float sx = x_scale(a.partials, a.n_partials, a.eps, a.inv_qmax, red,
+                           &sx_s);
+  const Scale sc = make_scale(sx);
+  const int iqmax = static_cast<int>(a.qmax);
+
+  float carry[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) carry[i] = 0.0f;
+  for (int c0 = 0; c0 < a.n_chunks; c0 += chunks_a_step) {
+    const int k0 = c0 * n;
+    const int len = min(step, a.k - k0);
+    for (int i = tid; i < bm * step; i += kSmallThreads) {
+      const int r = i / step;
+      const int p = i - r * step;
+      const long long gm = m0 + r;
+      const float v =
+          (gm < a.m && p < len) ? ld_elem(x + gm * a.k + k0 + p) : 0.0f;
+      xs[r * xstride + p] = quant_int(v, sc, iqmax);
+    }
+    for (int i = tid; i < TW * step; i += kSmallThreads) {
+      const int c = i / step;
+      const int p = i - c * step;
+      int q = 0;
+      if (d0 + c < a.d && p < len) {
+        const unsigned char* src =
+            a.wq + static_cast<long long>(d0 + c) * a.kp + k0 + p;
+        q = static_cast<signed char>(src[0]);
+        if (a.planes == 2) q = q * 16 + src[a.w_plane];
+      }
+      ws[p * TW + c] = q;
+    }
+    __syncthreads();
+    const int chunks = min(chunks_a_step, a.n_chunks - c0);
+#pragma unroll 4
+    for (int g = 0; g < chunks; ++g) {
+      const int c = c0 + g;
+      const int clen = min(n, a.k - c * n);
+      int ps[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) ps[i] = 0;
+      for (int j = 0; j < clen; ++j) {
+        const int p = g * n + j;
+        const int wv = ws[p * TW + dd];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          ps[i] += xs[(rr + i * RP) * xstride + p] * wv;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float v = __int2float_rn(ps[i]);
+        if (a.chunk_adc) {
+          const long long gm = m0 + rr + i * RP;
+          if (a.noise != nullptr && gm < a.m && gd < a.d) {
+            const float z =
+                a.noise[(static_cast<long long>(c) * a.m + gm) * a.d + gd];
+            v = __fadd_rn(v, __fmul_rn(a.coef, z));
+          }
+          v = adc_round(v, a.inv_step, a.step, a.hi);
+        }
+        carry[i] = __fadd_rn(carry[i], v);
+      }
+    }
+    __syncthreads();
+  }
+
+  XT* __restrict__ out = static_cast<XT*>(a.out);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const long long gm = m0 + rr + i * RP;
+    if (gm >= a.m || gd >= a.d) continue;
+    const long long o = gm * a.d + gd;
+    float v = carry[i];
+    if (!a.chunk_adc) {
+      if (a.noise != nullptr) v = __fadd_rn(v, __fmul_rn(a.coef, a.noise[o]));
+      v = adc_round(v, a.inv_step, a.step, a.hi);
+    }
+    st_elem(out + o, __fmul_rn(v, __fmul_rn(sx, sw_s[dd])));
+  }
+}
+
+template <typename XT, int TW, int R>
+cudaError_t launch_small(const Int8Args& a, cudaStream_t stream) {
+  const int bm = kSmallThreads / TW * R;
+  const int step = (a.n < kSmallStepK ? kSmallStepK / a.n : 1) * a.n;
+  const int smem =
+      (bm * (step + 1) + step * TW) * static_cast<int>(sizeof(int));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        taom_gemm_small_kernel<XT, TW, R>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.m + bm - 1) / bm, (a.d + TW - 1) / TW);
+  taom_gemm_small_kernel<XT, TW, R><<<grid, kSmallThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename XT, int TW>
+cudaError_t launch_small(const Int8Args& a, int rows, cudaStream_t stream) {
+  return rows == 2 ? launch_small<XT, TW, 2>(a, stream)
+                   : launch_small<XT, TW, 1>(a, stream);
+}
+
+template <typename XT, int BD, int MODE, int P>
 cudaError_t launch_int8(const Int8Args& a, int warps, cudaStream_t stream) {
   constexpr int WN = BD > kWarpCols ? BD / kWarpCols : 1;
   const int bm = 16 * warps;
   const dim3 grid((a.m + bm - 1) / bm, (a.d + BD - 1) / BD);
-  const int smem = int8_smem_bytes<XT, BD, ASYNC>(bm, a.slot);
+  const int smem = int8_smem_bytes<P>(BD, warps, MODE, a.slot);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        taom_gemm_int8_kernel<XT, BD, ASYNC>,
+        taom_gemm_int8_kernel<XT, BD, MODE, P>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  taom_gemm_int8_kernel<XT, BD, ASYNC>
+  taom_gemm_int8_kernel<XT, BD, MODE, P>
       <<<grid, 32 * warps * WN, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename XT, int BD>
-cudaError_t launch_int8(const Int8Args& a, int warps, bool async,
-                        cudaStream_t stream) {
-  return async ? launch_int8<XT, BD, true>(a, warps, stream)
-               : launch_int8<XT, BD, false>(a, warps, stream);
+template <typename XT, int BD, int P>
+cudaError_t launch_int8_mode(const Int8Args& a, int warps, int mode,
+                             cudaStream_t stream) {
+  return mode == kXStaged
+             ? launch_int8<XT, BD, kXStaged, P>(a, warps, stream)
+             : launch_int8<XT, BD, kXLoad, P>(a, warps, stream);
 }
 
-template <typename XT, typename WT>
+template <typename XT, int P>
+cudaError_t launch_int8_tile(const Int8Args& a, int tile_d, int warps,
+                             int mode, cudaStream_t stream) {
+  switch (tile_d) {
+    case 8: return launch_int8_mode<XT, 8, P>(a, warps, mode, stream);
+    case 16: return launch_int8_mode<XT, 16, P>(a, warps, mode, stream);
+    case 32: return launch_int8_mode<XT, 32, P>(a, warps, mode, stream);
+    case 64: return launch_int8_mode<XT, 64, P>(a, warps, mode, stream);
+    case 128: return launch_int8_mode<XT, 128, P>(a, warps, mode, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
+
+template <typename XT, typename WT, int P>
 cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
-                         int tile_d, int warps, int n_xblocks,
-                         int x_vec, cudaStream_t stream) {
+                         int tile_d, int height, int n_xblocks, int x_vec,
+                         int x_once, int small, cudaStream_t stream) {
+  // scratch: w's planes, x's planes (x_once), partials, column scales;
+  // each region starts on 16 bytes.
+  a.w_plane = static_cast<long long>(a.d) * a.kp;
+  a.x_plane = static_cast<long long>(a.m) * a.kp;
   unsigned char* wq = scratch;
+  unsigned char* xq = wq + round16(P * a.w_plane);
   float* partials = reinterpret_cast<float*>(
-      scratch + static_cast<long long>(a.d) * a.kp);
+      xq + (x_once ? round16(P * a.x_plane) : 0));
   float* sw = partials + n_xblocks;
   const int col_blocks = (a.d + kColGroup - 1) / kColGroup;
   // Long columns of w take 1024 threads (32 rows of a column at once), the
@@ -818,15 +1098,17 @@ cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
   const XT* x = static_cast<const XT*>(a.x);
   const long long nx = static_cast<long long>(a.m) * a.k;
   if (a.k > 256) {
-    taom_gemm_absmax_kernel<XT, WT, 1024>
+    taom_gemm_absmax_kernel<XT, WT, 1024, P>
         <<<n_xblocks + col_blocks, 1024, 0, stream>>>(
             x, nx, x_vec, w, a.k, a.d, a.n, a.n_chunks, a.slot, a.kp,
-            n_xblocks, partials, sw, wq, a.eps, a.inv_qmax, a.qmax);
+            n_xblocks, partials, sw, wq, a.w_plane, a.eps, a.inv_qmax,
+            a.qmax);
   } else {
-    taom_gemm_absmax_kernel<XT, WT, 256>
+    taom_gemm_absmax_kernel<XT, WT, 256, P>
         <<<n_xblocks + col_blocks, 256, 0, stream>>>(
             x, nx, x_vec, w, a.k, a.d, a.n, a.n_chunks, a.slot, a.kp,
-            n_xblocks, partials, sw, wq, a.eps, a.inv_qmax, a.qmax);
+            n_xblocks, partials, sw, wq, a.w_plane, a.eps, a.inv_qmax,
+            a.qmax);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -834,18 +1116,44 @@ cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
   a.partials = partials;
   a.n_partials = n_xblocks;
   a.sw = sw;
-  // Double-buffering x pays from the third piece on; before that the raw
-  // buffers only cost resident blocks.
-  const int pieces = a.kp / a.slot;
-  const bool async = x_vec && a.k % Vec<XT>::n == 0 && pieces >= 3;
-  switch (tile_d) {
-    case 8: return launch_int8<XT, 8>(a, warps, async, stream);
-    case 16: return launch_int8<XT, 16>(a, warps, async, stream);
-    case 32: return launch_int8<XT, 32>(a, warps, async, stream);
-    case 64: return launch_int8<XT, 64>(a, warps, async, stream);
-    case 128: return launch_int8<XT, 128>(a, warps, async, stream);
-    default: return cudaErrorInvalidValue;
+  a.planes = P;
+  if (small) {
+    switch (tile_d) {
+      case 8: return launch_small<XT, 8>(a, height, stream);
+      case 16: return launch_small<XT, 16>(a, height, stream);
+      case 32: return launch_small<XT, 32>(a, height, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  const int warps = height;
+  int mode = kXLoad;
+  if (x_once) {
+    const long long words = a.x_plane / 4;
+    const long long want = (words + kQuantXThreads - 1) / kQuantXThreads;
+    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+    taom_gemm_quant_x_kernel<XT, P><<<blocks, kQuantXThreads, 0, stream>>>(
+        x, a.m, a.k, a.n, a.slot, a.kp, partials, n_xblocks, a.eps,
+        a.inv_qmax, a.qmax, xq, a.x_plane);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    a.xq = xq;
+    mode = kXStaged;
+  }
+  return launch_int8_tile<XT, P>(a, tile_d, warps, mode, stream);
+}
+
+template <typename XT, typename WT>
+cudaError_t launch_planes(const Int8Args& a, const WT* w,
+                          unsigned char* scratch, int planes, int tile_d,
+                          int height, int n_xblocks, int x_vec, int x_once,
+                          int small, cudaStream_t stream) {
+  return planes == 2
+             ? launch_fused<XT, WT, 2>(a, w, scratch, tile_d, height,
+                                       n_xblocks, x_vec, x_once, small,
+                                       stream)
+             : launch_fused<XT, WT, 1>(a, w, scratch, tile_d, height,
+                                       n_xblocks, x_vec, x_once, small,
+                                       stream);
 }
 
 }  // namespace
@@ -884,31 +1192,45 @@ extern "C" int taom_gemm_f32(const float* x, const float* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C entry point of the fused int8 route (loaded with ctypes).  x and
+// Plain C entry point of the fused s8 route (loaded with ctypes).  x and
 // out are float32 (x_bf16 = 0) or bfloat16 (1); w float32 or bfloat16
-// (w_bf16).  scratch holds d * kp bytes of quantized w (kp = n_chunks *
-// ceil(n / slot) * slot), then n_xblocks + d floats; the wrapper allocates
-// it.
-// tile_d is 8, 16, 32, 64 or 128 columns; the tile is 16 * warps rows high,
-// warps 1, 2 or 4; slot is the number of K positions staged at once (a
-// multiple of 32, at most 192).  x_vec says x is 16-byte aligned: the
-// absmax kernel then reads it in 16-byte vectors, and the GEMM copies its
-// rows with cp.async where K allows.  Returns the first nonzero
-// cudaGetLastError() of the launches (and of raising a kernel's shared
-// memory limit), or 0.
+// (w_bf16).  planes: 1 (qmax <= 127) or 2 (qmax <= 255, n * qmax^2 <
+// 2^24).  scratch holds planes * d * kp bytes of quantized w (kp = n_chunks
+// * ceil(n / slot) * slot), then with x_once planes * m * kp bytes of
+// quantized x, then n_xblocks + d floats, each region rounded up to 16
+// bytes; the wrapper allocates it.
+// small = 0, the tensor-core GEMM: tile_d is 8, 16, 32, 64 or 128
+// columns; the tile is 16 * height rows high (height: warps, 1, 2 or 4);
+// slot is the number of K positions staged at once (a multiple of 32, at
+// most 192).  small = 1, the small-chunk kernel on the CUDA cores: tile_d
+// is 8, 16 or 32 columns, each thread owns height (1 or 2) rows of one
+// column, slot == n (the compact layout) and n <= kSmallMaxN.  x_vec says
+// x is 16-byte aligned: the absmax kernel then reads it in 16-byte
+// vectors.  x_once (small = 0):
+// quantize x once (taom_gemm_quant_x_kernel, a third launch) instead of in
+// every column tile.  Returns the first nonzero cudaGetLastError() of the
+// launches (and of raising a kernel's shared memory limit), or 0.
 extern "C" int taom_gemm_int8(const void* x, const void* w,
                               const float* noise, void* out, void* scratch,
                               int x_bf16, int w_bf16, int m, int k, int d,
                               int n, int n_chunks, int chunk_adc, float coef,
                               float inv_step, float step, float hi,
                               float qmax, float inv_qmax, float eps,
-                              int tile_d, int warps, int slot, int n_xblocks,
-                              int kp, int x_vec, void* stream_ptr) {
-  const bool tile_ok = tile_d == 8 || tile_d == 16 || tile_d == 32 ||
-                       tile_d == 64 || tile_d == 128;
-  const bool warps_ok = warps == 1 || warps == 2 || warps == kMaxWarps;
-  if (!tile_ok || !warps_ok || slot < 32 || slot % 32 != 0 || slot > 192 ||
-      n_xblocks < 1 || kp != n_chunks * ((n + slot - 1) / slot) * slot) {
+                              int tile_d, int height, int slot,
+                              int n_xblocks, int kp, int x_vec, int planes,
+                              int x_once, int small, void* stream_ptr) {
+  const bool planes_ok = (planes == 1 && qmax <= 127.0f) ||
+                         (planes == 2 && qmax <= 255.0f);
+  const bool tiles_ok =
+      small ? (tile_d == 8 || tile_d == 16 || tile_d == 32) &&
+                  (height == 1 || height == 2) && slot == n && !x_once &&
+                  n <= kSmallMaxN
+            : (tile_d == 8 || tile_d == 16 || tile_d == 32 || tile_d == 64 ||
+               tile_d == 128) &&
+                  (height == 1 || height == 2 || height == kMaxWarps) &&
+                  slot >= 32 && slot % 32 == 0 && slot <= 192;
+  if (!planes_ok || !tiles_ok || n_xblocks < 1 ||
+      kp != n_chunks * ((n + slot - 1) / slot) * slot) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -937,15 +1259,19 @@ extern "C" int taom_gemm_int8(const void* x, const void* w,
   const float* wf = static_cast<const float*>(w);
   cudaError_t err;
   if (x_bf16) {
-    err = w_bf16 ? launch_fused<bf16, bf16>(a, wb, buf, tile_d, warps,
-                                            n_xblocks, x_vec, stream)
-                 : launch_fused<bf16, float>(a, wf, buf, tile_d, warps,
-                                             n_xblocks, x_vec, stream);
+    err = w_bf16 ? launch_planes<bf16, bf16>(a, wb, buf, planes, tile_d,
+                                             height, n_xblocks, x_vec,
+                                             x_once, small, stream)
+                 : launch_planes<bf16, float>(a, wf, buf, planes, tile_d,
+                                              height, n_xblocks, x_vec,
+                                              x_once, small, stream);
   } else {
-    err = w_bf16 ? launch_fused<float, bf16>(a, wb, buf, tile_d, warps,
-                                             n_xblocks, x_vec, stream)
-                 : launch_fused<float, float>(a, wf, buf, tile_d, warps,
-                                              n_xblocks, x_vec, stream);
+    err = w_bf16 ? launch_planes<float, bf16>(a, wb, buf, planes, tile_d,
+                                              height, n_xblocks, x_vec,
+                                              x_once, small, stream)
+                 : launch_planes<float, float>(a, wf, buf, planes, tile_d,
+                                               height, n_xblocks, x_vec,
+                                               x_once, small, stream);
   }
   return static_cast<int>(err);
 }

@@ -7,12 +7,14 @@ backward.
 
 This is what the model zoo calls.  It folds leading dimensions into the
 GEMM's M axis, quantizes both operands, runs the chunked TAOM GEMM and
-rescales.  On CUDA tensors (``impl="kernel"``) operands of at most 7 bits
-take the fused int8 route, which does all three in its two kernels
-(``kernels/taom_gemm.taom_gemm_fused``); 8-bit operands are quantized and
-rescaled here around the float32 body (``taom_gemm_quantized``).  CPU
-tensors, or ``impl="ref"``, take the plain version
-(``kernels/ref.photonic_gemm_reference``).
+rescales.  On CUDA tensors (``impl="kernel"``) the route is
+``kernels/taom_gemm.taom_route``'s: operands of at most 7 bits (one s8
+plane) and 8-bit operands with ``dpe_size * qmax^2 < 2^24`` (two s8
+planes) take the fused route, which does all three in its two or three
+kernels (``taom_gemm_fused``); bits >= 9, or 8 bits at ``dpe_size >=
+259``, are quantized and rescaled here around the float32 body
+(``taom_gemm_quantized``).  CPU tensors, or ``impl="ref"``, take the plain
+version (``kernels/ref.photonic_gemm_reference``).
 The backward is the straight-through estimator of the reference's
 ``custom_vjp``: gradients of an exact matmul, ``g @ w.T`` and ``x.T @ g``.
 
@@ -93,9 +95,9 @@ def _taom_forward(x2d: torch.Tensor, w: torch.Tensor,
                   blocks: tuple) -> torch.Tensor:
     if impl == "ref":
         return ref_mod.photonic_gemm_reference(x2d, w, noise, cfg, adc_fs)
-    if taom_kernel_mod.int8_route(cfg):
-        # The fused int8 route takes float32 or bfloat16 operands; any
-        # other type is widened as the reference's quantize widens it.
+    if taom_kernel_mod.taom_route(cfg) != "float32":
+        # The fused route takes float32 or bfloat16 operands; any other
+        # type is widened as the reference's quantize widens it.
         xk = x2d if x2d.dtype in _INT8_INPUTS else x2d.to(torch.float32)
         wk = w if w.dtype in _INT8_INPUTS else w.to(torch.float32)
         out = taom_kernel_mod.taom_gemm_fused(

@@ -9,8 +9,9 @@ kernel's ADC constants (``adc_round``).  The CPU tests run it against the
 reference package; ``chip_smoke.py`` holds the CUDA kernel against it on
 the card.
 
-``photonic_gemm_reference`` is the plain version of the fused int8 route
-``kernels.taom_gemm.taom_gemm_fused`` and the ``impl="ref"`` path of
+``photonic_gemm_reference`` is the plain version of the fused route
+``kernels.taom_gemm.taom_gemm_fused`` (one s8 plane or two) and the
+``impl="ref"`` path of
 ``ops.photonic_matmul`` (counterpart of the reference's
 ``repro.kernels.ops._taom_forward`` with ``impl="ref"``): quantize x per
 tensor and w per column, ``taom_gemm_reference``, rescale, cast to x's

@@ -14,25 +14,36 @@ noise[M, D]`` and rounds once through the ADC over [-adc_fs, adc_fs];
 chunk-ADC (AMW, MAW) adds ``sigma * noise[c]`` to each chunk psum, rounds
 it at ``chunk_fs`` and sums the rounded chunks.
 
-Two routes:
+Three routes, one chosen by ``taom_route``:
 
-* ``taom_gemm_fused`` (operands of at most 7 bits, ``int8_route``): the
-  whole of ``ops._taom_forward`` — quantize x per tensor and w per column,
-  the chunked GEMM, rescale and cast — in two launches,
-  ``taom_gemm_absmax_kernel`` (partial maxima of |x|, w's column scales,
-  w quantized once to s8 into a scratch buffer) and
-  ``taom_gemm_int8_kernel`` (x quantized on load into shared memory as
-  s8, w's pieces copied in with cp.async, exact s8 x s8 -> s32
-  tensor-core products per chunk, the policy, rescale and cast in the
-  epilogue).  x is float32 or bfloat16, and so is the output.
-* ``taom_gemm_quantized`` (any bits; the route for 8-bit operands): the
-  float32 body on pre-quantized operands; the caller quantizes and
-  rescales.
+* ``"int8"`` (operands of at most 7 bits: |q| <= 127 fits s8) and
+  ``"s8x2"`` (8 bits, with ``dpe_size * qmax^2 < 2^24``), both through
+  ``taom_gemm_fused``: the whole of ``ops._taom_forward`` — quantize x per
+  tensor and w per column, the chunked GEMM, rescale and cast — in two
+  launches, or three: ``taom_gemm_absmax_kernel`` (partial maxima of |x|,
+  w's column scales, w quantized once into s8 planes in a scratch
+  buffer), where the GEMM has several column tiles or K four pieces
+  ``taom_gemm_quant_x_kernel`` (x quantized once into s8 planes;
+  ``int8_plan``'s ``x_once``), and ``taom_gemm_int8_kernel`` (x quantized
+  on load into shared memory, or its planes copied in; w's pieces copied
+  in with cp.async; exact s8 x s8 -> s32 tensor-core products per chunk,
+  the policy, rescale and cast in the epilogue) — or, for chunks of at
+  most ``SMALL_N`` positions, ``taom_gemm_small_kernel`` (the same on the
+  CUDA cores, each chunk's N products summed in s32, where a 32-deep
+  tensor-core slot a chunk would waste most of its work).  ``"int8"`` is
+  one s8 plane; ``"s8x2"`` splits each q in [-255, 255] into two, q = 16
+  h + l with h in [-16, 15] and l in [0, 15], four products a chunk,
+  combined exactly in s32 (the source proves it).  x is float32 or
+  bfloat16, and so is the output.
+* ``"float32"`` (bits >= 9, or 8 bits at ``dpe_size >= 259``):
+  ``taom_gemm_quantized``, the float32 body on pre-quantized operands; the
+  caller quantizes and rescales.
 
-Bound on this card: memory.  At the main paths' shapes a GEMM reads x and
-w and writes its output once (and reads the noise when it is on), and
-its 2*M*K*D operations at the int8 tensor-core rate take less time than
-those bytes.  The fused route keeps the ~16 elementwise passes of the
+Bound on this card: memory at the main paths' shapes (a GEMM reads x and
+w and writes its output once, and reads the noise when it is on), except
+at QAT's 8-bit widths, where 2*M*K*D operations at the bf16 tensor-core
+rate are the larger (``"s8x2"``'s own floor, four s8 products each, is
+twice that).  The fused route keeps the ~16 elementwise passes of the
 unfused route (quantize, rescale) out of device memory; see the source.
 
 Tiles: a plan's ``(block_m, block_d)`` (``LayerPlan.tile``, sized by the
@@ -40,7 +51,7 @@ reference scheduler for the TPU kernel's VMEM and grid steps) maps onto
 the kernel's tile width by ``kernel_tile``: the smallest of 8/16/32/64
 columns that covers ``min(D, block_d)``.  ``block_m`` selects nothing.
 The float32 body's tile is 2048 / width rows high (256 threads of 2 rows
-x 4 columns); the int8 route's height is ``int8_plan``'s choice.
+x 4 columns); the fused route's height is ``int8_plan``'s choice.
 Numerics are tile-invariant.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
@@ -72,15 +83,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _TILE_WIDTHS = (8, 16, 32, 64)
 
-# The int8 route (csrc/taom_gemm.cu, taom_gemm_int8).
+# The fused route (csrc/taom_gemm.cu, taom_gemm_int8).
 INT8_QMAX = 127                     # |q| <= qmax fits s8 for bits <= 7
-KERNELS = ("taom_gemm_absmax", "taom_gemm_int8")   # its two kernels
+S8X2_QMAX = 255                     # two s8 planes hold |q| <= 255
+EXACT_LIMIT = 2 ** 24               # float32 holds every integer below
+ROUTES = ("int8", "s8x2", "float32")
+# Its kernels: absmax, the optional quantize of x, the tensor-core GEMM or
+# the small-chunk kernel.
+KERNELS = ("taom_gemm_absmax", "taom_gemm_quant_x", "taom_gemm_int8",
+           "taom_gemm_small")
 INT8_TILE_WIDTHS = (8, 16, 32, 64, 128)
 _WARPS = (4, 2, 1)                  # a warp owns 16 rows of the tile
 MIN_BLOCKS = 2 * 132                # two blocks for each of the 132 SMs
 SLOT_MAX = 192                      # K positions staged at once
 ABSMAX_BLOCKS = 132                 # at most, for the partial maxima of |x|
 QUANT_EPS = 1e-12                   # core.taom.quantize's eps
+SMALL_N = 8                         # chunks this short take the CUDA cores
+X_ONCE_PIECES = 4                   # with one column tile, K pieces from
+                                    # which x is quantized once
+SMALL_TILE_WIDTHS = (8, 16, 32)     # the small-chunk kernel's tile widths
+SMALL_THREADS = 256                 # its block
 
 
 def _round_up(x: int, m: int) -> int:
@@ -125,44 +147,93 @@ def kernel_tile(d: int, block_d: int) -> int:
     return next((t for t in _TILE_WIDTHS if t >= want), _TILE_WIDTHS[-1])
 
 
-def int8_route(cfg: PhotonicConfig) -> bool:
-    """Whether ``cfg``'s quantized operands fit s8 (bits <= 7): the fused
-    int8 route takes them; 8-bit operands take the float32 body."""
-    return cfg.qmax <= INT8_QMAX
+def taom_route(cfg: PhotonicConfig) -> str:
+    """The route ``cfg``'s GEMMs take on the card (``ROUTES``): ``"int8"``
+    where the quantized operands fit s8 (bits <= 7); ``"s8x2"`` where they
+    fit two s8 planes (qmax <= 255: 8 bits) and a chunk's psum stays below
+    2^24 (``dpe_size * qmax^2 < 2^24``: N <= 258), so that its s32 sum
+    converted once is the reference's float32 chunk dot product;
+    ``"float32"`` (the float32 body) otherwise."""
+    if cfg.qmax <= INT8_QMAX:
+        return "int8"
+    if cfg.qmax <= S8X2_QMAX and cfg.dpe_size * cfg.qmax ** 2 < EXACT_LIMIT:
+        return "s8x2"
+    return "float32"
 
 
-def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128) -> dict:
-    """Launch shape of the int8 route for an (M, K) @ (K, D) GEMM with
-    chunks of N: the tile width (the smallest of ``INT8_TILE_WIDTHS`` that
-    covers ``min(D, block_d)``), row warps per block (the most of 4, 2, 1
-    that still gives ``MIN_BLOCKS`` blocks, else 1; 16 rows each, and two
-    warps side by side at width 128), the tile's height, the grid, the K
-    positions staged at once (a chunk, padded to a multiple of 32, at most
-    ``SLOT_MAX``), the absmax kernel's blocks, and the bytes of one
-    quantized column of w in the scratch buffer (its C chunks, each cut
-    into pieces of ``slot`` positions and padded with zeros) and of the
-    whole buffer."""
+def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128,
+              planes: int = 1, x_once: Optional[bool] = None,
+              small: Optional[bool] = None) -> dict:
+    """Launch shape of the fused route for an (M, K) @ (K, D) GEMM with
+    chunks of N and ``planes`` s8 planes an operand (1: ``"int8"``, 2:
+    ``"s8x2"``).
+
+    ``small`` (by default, and at most, N <= ``SMALL_N``: on a Table-4
+    forward the small kernel was faster than the slot path at N 2, 4 and 8
+    at 7 and 8 bits, slower at 32, and at 16 slower for analog carry and
+    faster for chunk-ADC): the small-chunk kernel on the CUDA cores; its
+    tile is the smallest of ``SMALL_TILE_WIDTHS`` that
+    covers ``min(D, block_d)``, each of its 256 threads owns ``height``
+    rows (2 where that still gives ``MIN_BLOCKS`` blocks, else 1) of one
+    column, and w's planes are compact (``slot`` N, one piece a chunk).
+    Otherwise the tensor-core GEMM: the tile width (the smallest of
+    ``INT8_TILE_WIDTHS`` that covers ``min(D, block_d)``), row warps per
+    block (``warps`` = ``height``: the most of 4, 2, 1 that still gives
+    ``MIN_BLOCKS`` blocks, else 1; 16 rows each, and two warps side by side
+    at width 128), the K positions staged at once (``slot``: a chunk,
+    padded to a multiple of 32, at most ``SLOT_MAX``), and whether x is
+    quantized once into planes of the staged layout (``x_once``: by
+    default where the grid has more than one column tile or K has at
+    least ``X_ONCE_PIECES`` pieces, and the layout at most doubles K;
+    otherwise each column tile quantizes its x rows on load, piece by
+    piece).  Both: the tile's height in rows, the grid, the absmax
+    kernel's blocks, the bytes of one quantized row of a plane in the
+    staged layout (its C chunks, each cut into pieces of ``slot``
+    positions and padded with zeros), and the bytes of the scratch buffer:
+    w's planes, x's (``x_once``), the partial maxima and the column
+    scales, each region rounded up to 16 bytes."""
+    if small is None:
+        small = n <= SMALL_N
+    if small and n > SMALL_N:
+        raise ValueError(f"the small-chunk kernel takes dpe_size <= "
+                         f"{SMALL_N}, got {n}")
     want = max(1, min(int(d), int(block_d)))
-    width = next((t for t in INT8_TILE_WIDTHS if t >= want),
-                 INT8_TILE_WIDTHS[-1])
+    widths = SMALL_TILE_WIDTHS if small else INT8_TILE_WIDTHS
+    width = next((t for t in widths if t >= want), widths[-1])
     d_tiles = -(-d // width)
-    warps = next((w for w in _WARPS
-                  if -(-m // (16 * w)) * d_tiles >= MIN_BLOCKS), 1)
+    if small:
+        per_pass = SMALL_THREADS // width
+        height = 2 if -(-m // (2 * per_pass)) * d_tiles >= MIN_BLOCKS else 1
+        tile_m, warps = per_pass * height, SMALL_THREADS // 32
+        slot = n
+        x_once = False
+    else:
+        height = warps = next((w for w in _WARPS
+                               if -(-m // (16 * w)) * d_tiles >= MIN_BLOCKS),
+                              1)
+        tile_m = 16 * warps
+        slot = min(_round_up(min(n, k), 32), SLOT_MAX)
     threads = 1024 if k > 256 else 256      # as the C entry point picks
     x_blocks = max(1, min(ABSMAX_BLOCKS, -(-(m * k) // (threads * 16))))
-    slot = min(_round_up(min(n, k), 32), SLOT_MAX)
     w_bytes = -(-k // n) * -(-n // slot) * slot
-    return {"width": width, "warps": warps, "tile_m": 16 * warps,
-            "grid": (-(-m // (16 * warps)), d_tiles),
-            "slot": slot, "x_blocks": x_blocks,
-            "w_bytes": w_bytes,
-            "scratch_bytes": d * w_bytes + 4 * (x_blocks + d)}
+    if x_once is None:
+        x_once = ((d_tiles > 1 or w_bytes // slot >= X_ONCE_PIECES) and
+                  w_bytes <= 2 * k)
+    return {"width": width, "warps": warps, "tile_m": tile_m,
+            "grid": (-(-m // tile_m), d_tiles), "height": height,
+            "small": bool(small), "slot": slot, "x_blocks": x_blocks,
+            "w_bytes": w_bytes, "planes": planes, "x_once": bool(x_once),
+            "scratch_bytes": _round_up(planes * d * w_bytes, 16) +
+            _round_up(planes * m * w_bytes, 16) * bool(x_once) +
+            4 * (x_blocks + d)}
 
 
-#: Launches of the CUDA kernels: +1 per wrapper call that launches (either
-#: route; the plain versions do not count).  ``chip_smoke.py`` sets it to 0
-#: and reads it to show that the main path ran through the kernels.
+#: Launches of the CUDA kernels: +1 per wrapper call that launches (any
+#: route; the plain versions do not count), and per route in
+#: ``ROUTE_LAUNCHES``.  ``chip_smoke.py`` sets them to 0 and reads them to
+#: show that the main path ran through the kernels.
 LAUNCHES = 0
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -185,7 +256,7 @@ def _library():
             fn.restype = ctypes.c_int
             fn = lib.taom_gemm_int8
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
-                           [ctypes.c_float] * 7 + [ctypes.c_int] * 6 +
+                           [ctypes.c_float] * 7 + [ctypes.c_int] * 9 +
                            [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _LIB = lib
@@ -280,24 +351,32 @@ def taom_gemm_quantized(xq: torch.Tensor, wq: torch.Tensor,
         raise RuntimeError(f"taom_gemm_f32 launch failed: CUDA error {err} "
                            f"(M={m}, K={k}, D={d}, tile width {width})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES["float32"] += 1
     return out
 
 
 def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
                     noise: Optional[torch.Tensor], cfg: PhotonicConfig,
                     adc_fs: float, *, block_m: int = 128,
-                    block_d: int = 128) -> torch.Tensor:
-    """The int8 route: quantize -> chunked photonic GEMM -> rescale, as
-    ``ref.photonic_gemm_reference`` computes it, for ``cfg.qmax <= 127``.
+                    block_d: int = 128,
+                    _plan: Optional[dict] = None) -> torch.Tensor:
+    """The fused route (``"int8"`` or ``"s8x2"``, ``taom_route``): quantize
+    -> chunked photonic GEMM -> rescale, as ``ref.photonic_gemm_reference``
+    computes it.
 
     x: (M, K) float32 or bfloat16; w: (K, D) float32 or bfloat16; both
     contiguous.  noise as in ``taom_gemm_quantized``.  block_m/block_d: a
-    plan's tile (see ``kernel_tile``).  Returns (M, D) in x's dtype.
+    plan's tile (see ``kernel_tile``).  ``_plan``: an ``int8_plan`` of
+    this GEMM to launch instead of the default one (tests and measurements
+    force ``x_once`` or ``small`` with it).  Returns (M, D) in x's dtype.
     """
     global LAUNCHES
-    if not int8_route(cfg):
-        raise ValueError(f"the int8 route takes bits <= 7 (qmax <= "
-                         f"{INT8_QMAX}), got bits={cfg.bits}")
+    route = taom_route(cfg)
+    if route == "float32":
+        raise ValueError(f"the fused route takes bits <= 7 (qmax <= "
+                         f"{INT8_QMAX}, one s8 plane), or 8 bits with "
+                         f"dpe_size * qmax^2 < 2^24 (two planes); got "
+                         f"bits={cfg.bits}, dpe_size={cfg.dpe_size}")
     m, k, d, n_chunks, chunk_adc = _check_shapes(("x", x), ("w", w), noise,
                                                  cfg)
     if x.device.type == "cpu":
@@ -306,7 +385,11 @@ def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
     kinds = (torch.float32, torch.bfloat16)
     _check_cuda((("x", x, kinds), ("w", w, kinds),
                  ("noise", noise, (torch.float32,))))
-    plan = int8_plan(m, k, d, cfg.dpe_size, block_d)
+    planes = 1 if route == "int8" else 2
+    plan = _plan or int8_plan(m, k, d, cfg.dpe_size, block_d, planes=planes)
+    if plan["planes"] != planes:
+        raise ValueError(f"the {route} route takes {planes} s8 plane(s), "
+                         f"the plan has {plan['planes']}")
     if plan["grid"][1] > 65535:
         raise ValueError(f"D={d} needs more than 65535 column tiles")
     coef, step, inv_step, hi = _policy_constants(cfg, adc_fs, n_chunks)
@@ -321,11 +404,12 @@ def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
         scratch.data_ptr(), int(x.dtype == torch.bfloat16),
         int(w.dtype == torch.bfloat16), m, k, d, cfg.dpe_size, n_chunks,
         int(chunk_adc), coef, inv_step, step, float(hi), qmax, 1.0 / qmax,
-        QUANT_EPS, plan["width"], plan["warps"], plan["slot"],
+        QUANT_EPS, plan["width"], plan["height"], plan["slot"],
         plan["x_blocks"], plan["w_bytes"], int(x.data_ptr() % 16 == 0),
-        stream)
+        plan["planes"], int(plan["x_once"]), int(plan["small"]), stream)
     if err != 0:
         raise RuntimeError(f"taom_gemm_int8 launch failed: CUDA error {err} "
                            f"(M={m}, K={k}, D={d}, plan {plan})")
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route] += 1
     return out

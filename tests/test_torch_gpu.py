@@ -4,9 +4,10 @@ elsewhere).  Run them on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 They hold the CUDA kernels against their plain PyTorch versions on the
-card — the TAOM GEMM's two routes (the float32 body on pre-quantized
-operands, and the fused int8 route with quantize and rescale inside) bit
-for bit where the integer psums stay below 2^24 (asserted), the SSD scan
+card — the TAOM GEMM's routes (the float32 body on pre-quantized
+operands, and the fused route with quantize and rescale inside, on one s8
+plane for bits <= 7 and on two for 8 bits) bit for bit where the integer
+psums stay below 2^24 (asserted), the SSD scan
 within rtol 1e-4 and atol 1e-4 * max|plain| (its sums run in another
 order), the flash-attention kernel within rtol 1e-5 and atol 1e-5 *
 max|plain| in float32 and one bf16 ulp of each query row's max|plain|
@@ -143,11 +144,18 @@ def _fused_noise(cuda, cfg, m, k, d, seed):
                        device=cuda)
 
 
-def _fused_equal(cuda, x, w, cfg, noise, block_d=128):
-    fs = taom_gemm.calibrated_adc_fs(x.shape[1], cfg)
-    assert cfg.qmax ** 2 * min(cfg.dpe_size, x.shape[1]) < 2 ** 24
+def _fused_equal(cuda, x, w, cfg, noise, block_d=128, **force):
+    # force: int8_plan's x_once and small, handed in as the wrapper's plan.
+    (m, k), d = x.shape, w.shape[1]
+    fs = taom_gemm.calibrated_adc_fs(k, cfg)
+    assert cfg.qmax ** 2 * min(cfg.dpe_size, k) < 2 ** 24
+    plan = (taom_gemm.int8_plan(
+        m, k, d, cfg.dpe_size, block_d,
+        planes=1 if taom_gemm.taom_route(cfg) == "int8" else 2, **force)
+        if force else None)
     before = taom_gemm.LAUNCHES
-    got = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs, block_d=block_d)
+    got = taom_gemm.taom_gemm_fused(x, w, noise, cfg, fs, block_d=block_d,
+                                    _plan=plan)
     assert taom_gemm.LAUNCHES == before + 1
     want = ref.photonic_gemm_reference(x, w, noise, cfg, fs)
     torch.cuda.synchronize()
@@ -232,13 +240,98 @@ def test_fused_route_takes_views_off_a_16_byte_boundary_on_card(
                        taom_gemm.taom_gemm_fused(x, w, None, cfg, fs))
 
 
+# The fused route on two s8 planes (8 bits, N qmax^2 < 2^24): bit-equal to
+# the plain version at the Table-4 and QAT shapes (M cut), N 1 to 258, x
+# quantized on load and once, short chunks on the tensor cores and through
+# the small-chunk kernel, x off 16 bytes.
+def _variants(n):
+    out = [{}, {"x_once": False, "small": False},
+           {"x_once": True, "small": False}]
+    return out + ([{"small": True}] if n <= taom_gemm.SMALL_N else [])
+
+
+@pytest.mark.parametrize("m,k,d,n,block_d", [
+    (1, 1, 1, 1, 128), (37, 27, 16, 1, 128), (300, 27, 16, 2, 128),
+    (64, 288, 10, 1, 128), (33, 144, 70, 83, 8), (512, 768, 300, 128, 128),
+    (300, 500, 33, 258, 64), (5000, 84, 8, 83, 8), (17, 1536, 130, 128, 128)])
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.INT_QUANT,
+                                     Backend.AMW, Backend.MAW])
+def test_s8x2_route_bit_equal_at_edges_on_card(cuda, m, k, d, n, block_d,
+                                               backend):
+    cfg = PhotonicConfig(backend=backend, bits=8, dpe_size=n)
+    assert taom_gemm.taom_route(cfg) == "s8x2"
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = _fused_operands(cuda, m, k, d, dtype, seed=m + n)
+        noise = _fused_noise(cuda, cfg, m, k, d, n)
+        for plan in _variants(n):
+            _fused_equal(cuda, x, w, cfg, noise, block_d, **plan)
+        _fused_equal(cuda, x, w, cfg, None, block_d)
+
+
+@pytest.mark.parametrize("m,k,d", [(2048, 768, 3352), (2048, 1536, 768)])
+@pytest.mark.parametrize("x_once", [False, True])
+def test_s8x2_route_bit_equal_at_qat_shapes_on_card(cuda, m, k, d, x_once):
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=8, dpe_size=128,
+                         noise_enabled=False)
+    x, w = _fused_operands(cuda, m, k, d, torch.bfloat16, seed=k)
+    _fused_equal(cuda, x, w, cfg, None, 128, x_once=x_once)
+
+
+@pytest.mark.parametrize("factor", [1.0, 0.7, 3.3, 1e-30, 1e30])
+def test_s8x2_route_rounds_half_integers_like_the_reference_on_card(
+        cuda, factor):
+    qmax = 255
+    halves = torch.arange(-2 * qmax, 2 * qmax + 1, device=cuda) * 0.5
+    x = (halves * factor).repeat(3, 1).float()
+    x[1] = torch.nextafter(x[1], torch.full_like(x[1], math.inf))
+    x[2] = torch.nextafter(x[2], torch.full_like(x[2], -math.inf))
+    w = (halves[:, None] * torch.tensor([factor, 1.0, 0.3, 7.0],
+                                        device=cuda)).float()
+    for n in (1, 83, 258):
+        cfg = PhotonicConfig(backend=Backend.HEANA, bits=8, dpe_size=n)
+        for plan in _variants(n):
+            _fused_equal(cuda, x, w, cfg, None, 128, **plan)
+            _fused_equal(cuda, x.bfloat16(), w, cfg, None, 128, **plan)
+
+
+@pytest.mark.parametrize("offset", [(1, 0), (2, 3), (0, 3), (3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_s8x2_route_takes_views_off_a_16_byte_boundary_on_card(
+        cuda, offset, dtype):
+    cfg = PhotonicConfig(backend=Backend.AMW, bits=8, dpe_size=128)
+    m, k, d = 300, 768, 200
+    x, w = _fused_operands(cuda, m, k, d, dtype, seed=9, offset=offset)
+    assert bool(offset[0]) == bool(x.data_ptr() % 16)
+    for plan in _variants(128):
+        _fused_equal(cuda, x, w, cfg, _fused_noise(cuda, cfg, m, k, d, 3),
+                     128, **plan)
+
+
+def test_float32_body_still_takes_9_bits_and_n_259_on_card(cuda):
+    x = torch.randn(3, 70, 300, device=cuda)
+    w = torch.randn(300, 40, device=cuda)
+    for bits, n in ((9, 83), (8, 259)):
+        cfg = PhotonicConfig(backend=Backend.MAW, bits=bits, dpe_size=n)
+        assert taom_gemm.taom_route(cfg) == "float32"
+        before = taom_gemm.ROUTE_LAUNCHES["float32"]
+        got = ops.photonic_matmul(
+            x, w, cfg, generator=torch.Generator(device=cuda).manual_seed(4),
+            impl="kernel")
+        assert taom_gemm.ROUTE_LAUNCHES["float32"] == before + 1
+        want = ops.photonic_matmul(
+            x, w, cfg, generator=torch.Generator(device=cuda).manual_seed(4),
+            impl="ref")
+        assert torch.equal(got, want), (bits, n)
+
+
 def test_photonic_matmul_takes_the_fused_route_on_card(cuda):
-    # bits <= 7 launch the fused route (its two kernels and no PyTorch
-    # quantize), 8 bits the float32 body; both equal impl="ref" with the
-    # same generator seed.
+    # bits <= 7 and 8 bits launch the fused route (its kernels and no
+    # PyTorch quantize), 9 bits the float32 body; each equals impl="ref"
+    # with the same generator seed.
     x = torch.randn(4, 50, 100, device=cuda)
     w = torch.randn(100, 24, device=cuda)
-    for bits, route in ((6, "taom_gemm_int8"), (8, "taom_gemm_kernel")):
+    for bits, route in ((6, "taom_gemm_int8"), (8, "taom_gemm_int8"),
+                        (9, "taom_gemm_kernel")):
         cfg = PhotonicConfig(backend=Backend.AMW, bits=bits, dpe_size=36)
         got = ops.photonic_matmul(
             x, w, cfg, generator=torch.Generator(device=cuda).manual_seed(3),
@@ -254,6 +347,11 @@ def test_photonic_matmul_takes_the_fused_route_on_card(cuda):
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()]
         assert any(route in n for n in names), (bits, names)
+        if bits <= 8:
+            assert not any("taom_gemm_kernel" in n for n in names), names
+            kernels = [e.name for e in prof.events() if e.device_type ==
+                       torch.autograd.DeviceType.CUDA]
+            assert 2 <= len(kernels) <= 3, (bits, kernels)
 
 
 def test_fused_route_replays_in_a_cuda_graph_on_card(cuda):
@@ -291,7 +389,7 @@ def test_fused_route_rejects_bad_inputs_on_card(cuda):
     w = torch.zeros(16, 4, device=cuda)
     with pytest.raises(ValueError, match="bits <= 7"):
         taom_gemm.taom_gemm_fused(x, w, None,
-                                  dataclasses.replace(cfg, bits=8), 1.0)
+                                  dataclasses.replace(cfg, bits=9), 1.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         taom_gemm.taom_gemm_fused(x.double(), w, None, cfg, 1.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -894,10 +992,10 @@ def test_capture_keeps_the_allocator_cache_warm_on_card(cuda):
 
 @pytest.mark.parametrize("numerics", ["int8", "heana", "maw"])
 def test_small_cnn_table4_columns_kernel_equal_plain(cuda, numerics):
-    """Every GEMM of the small CNN under a Table-4 column (the float32
-    body at N = 83, 2 and 1; each GEMM's noise from a fresh generator
-    seeded 7): the kernel route's logits equal the plain route's bit for
-    bit, and the kernel ran 4 times."""
+    """Every GEMM of the small CNN under a Table-4 column (8 bits: the
+    fused route on two s8 planes at N = 83, 2 and 1; each GEMM's noise
+    from a fresh generator seeded 7): the kernel route's logits equal the
+    plain route's bit for bit, and the kernel ran 4 times."""
     examples = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "examples_torch")
     if examples not in sys.path:

@@ -176,11 +176,18 @@ def test_int8_emulation_slot_pieces_do_not_change_the_result(n, k, slot):
     assert torch.equal(_emulate(xt, wt, noise, tcfg, fs, slot), want)
 
 
-@pytest.mark.parametrize("bits,route", [(4, "fused"), (7, "fused"),
-                                        (8, "float32")])
-def test_photonic_matmul_routes_by_operand_bits(monkeypatch, bits, route):
-    # impl="kernel": qmax <= 127 takes the fused int8 route, qmax > 127
-    # (8 bits) the float32 body with quantize and rescale around it.
+@pytest.mark.parametrize("bits,n,route,name", [
+    pytest.param(4, 83, "fused", "int8", id="4-fused"),
+    pytest.param(7, 83, "fused", "int8", id="7-fused"),
+    pytest.param(8, 83, "fused", "s8x2", id="8-fused"),
+    pytest.param(8, 259, "float32", "float32", id="8-float32"),
+    pytest.param(9, 83, "float32", "float32", id="9-float32")])
+def test_photonic_matmul_routes_by_operand_bits(monkeypatch, bits, n, route,
+                                                name):
+    # impl="kernel": qmax <= 127 takes the fused route on one s8 plane,
+    # 8 bits with N qmax^2 < 2^24 (N <= 258) the fused route on two; 8 bits
+    # at N 259 and 9 bits the float32 body with quantize and rescale
+    # around it.
     calls = []
     fused, body = tkernel.taom_gemm_fused, tkernel.taom_gemm_quantized
     monkeypatch.setattr(tkernel, "taom_gemm_fused",
@@ -189,14 +196,14 @@ def test_photonic_matmul_routes_by_operand_bits(monkeypatch, bits, route):
     monkeypatch.setattr(tkernel, "taom_gemm_quantized",
                         lambda *a, **kw: calls.append("float32") or
                         body(*a, **kw))
-    cfg = PhotonicConfig(backend=Backend.HEANA, bits=bits, dpe_size=83,
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=bits, dpe_size=n,
                          noise_enabled=False)
     rng = np.random.default_rng(bits)
     x = torch.from_numpy(rng.standard_normal((2, 5, 100)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((100, 7)).astype(np.float32))
     got = tops.photonic_matmul(x, w, cfg, impl="kernel")
     assert calls == [route]
-    assert tkernel.int8_route(cfg) == (route == "fused")
+    assert tkernel.taom_route(cfg) == name
     assert torch.equal(got, tops.photonic_matmul(x, w, cfg, impl="ref"))
     assert calls == [route]                 # impl="ref" calls neither
 
@@ -255,8 +262,14 @@ def test_int8_plan_shapes(m, k, d, n):
         assert plan["width"] == 128          # the LM widths take BD 128
     pieces = -(-k // n) * -(-n // plan["slot"])
     assert plan["w_bytes"] == pieces * plan["slot"] >= k
-    assert plan["scratch_bytes"] == (d * plan["w_bytes"] +
-                                     4 * (plan["x_blocks"] + d))
+    # x is quantized once (a third launch) where the grid has several
+    # column tiles or K four pieces, into staged rows of w_bytes each.
+    assert plan["x_once"] == (
+        (plan["grid"][1] > 1 or pieces >= tkernel.X_ONCE_PIECES) and
+        plan["w_bytes"] <= 2 * k)
+    assert plan["scratch_bytes"] == (
+        (d + m * plan["x_once"]) * plan["w_bytes"] +
+        4 * (plan["x_blocks"] + d))
 
 
 def test_fused_wrapper_checks_on_cpu():
@@ -265,7 +278,10 @@ def test_fused_wrapper_checks_on_cpu():
     with pytest.raises(ValueError, match="noise has shape"):
         tkernel.taom_gemm_fused(x, w, torch.zeros(4, 3), cfg, 1.0)
     with pytest.raises(ValueError, match="bits <= 7"):
-        tkernel.taom_gemm_fused(x, w, None, dataclasses.replace(cfg, bits=8),
+        tkernel.taom_gemm_fused(x, w, None, dataclasses.replace(cfg, bits=9),
                                 1.0)
+    with pytest.raises(ValueError, match="bits <= 7"):
+        tkernel.taom_gemm_fused(x, w, None, dataclasses.replace(
+            cfg, bits=8, dpe_size=259), 1.0)
     with pytest.raises(ValueError, match="bad GEMM shapes"):
         tkernel.taom_gemm_fused(x, torch.zeros(99, 3), None, cfg, 1.0)
