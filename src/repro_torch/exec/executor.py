@@ -64,6 +64,7 @@ from repro_torch.exec.scheduler import CnnPlan, LayerPlan
 from repro_torch.kernels import ops
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import lowering as lw
+from repro_torch.runtime import trace
 
 #: A runnable network description: op-graph IR or legacy flat tuple.
 Lowering = Union[lw.OpGraph, Sequence[cnn_mod.LoweredLayer]]
@@ -327,14 +328,16 @@ def forward_shards_fn(params: Sequence[Dict[str, torch.Tensor]],
     pin = _pins(cfg, xs)
     shards = [_Shard(p, x, graph, plan, cfg, impl, pin)
               for p, x in zip(params, xs)]
-    amax = None
+    scales = [None] * len(shards)
     for _ in range(len(graph.gemm_nodes) + 1):
         local = []
-        for sh, x in zip(shards, xs):
+        for sh, x, scale in zip(shards, xs, scales):
             with _on(x.device):
-                local.append(sh.segment(
-                    None if amax is None else amax.to(x.device)))
-        amax = _batch_amax(local) if local[0] is not None else None
+                local.append(sh.segment(scale))
+        if local[0] is not None:
+            with trace.span("executor.exchange"):
+                amax = _batch_amax(local)
+                scales = [amax.to(x.device) for x in xs]
     return [sh.logits for sh in shards]
 
 
@@ -398,6 +401,43 @@ class _GraphTable:
         """Copy ``inputs`` into the entry's static buffers, replay, and
         return clones of its static outputs; a new key is captured first
         (``capture()``, counted by ``trace_count``)."""
+        with trace.span("executor.graph_wait"):
+            entry = self._get(key)
+            if entry is not None:
+                entry.lock.acquire()
+        if entry is None:
+            entry = self._add(key, capture)
+            entry.lock.acquire()
+        try:
+            devices = {t.device for t in entry.static}
+            with trace.span("executor.copy_in"):
+                for d in devices:            # the last caller's clone-out
+                    if d in entry.done:
+                        torch.cuda.current_stream(d).wait_event(
+                            entry.done[d])
+                for buf, t in zip(entry.static, inputs):
+                    buf.copy_(t)
+            with trace.span("executor.replay"):
+                entry.replay()
+            with trace.span("executor.clone_out"):
+                outs = _clone(entry.outs)
+                for d in devices:
+                    entry.done[d] = torch.cuda.Event()
+                    entry.done[d].record(torch.cuda.current_stream(d))
+        finally:
+            entry.lock.release()
+        return outs
+
+    def _get(self, key: tuple) -> Optional[_Captured]:
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is not None:
+                self._graphs.move_to_end(key)
+            return entry
+
+    def _add(self, key: tuple, capture: Callable[[], _Captured]
+             ) -> _Captured:
+        """Capture ``key``'s entry, unless another caller did meanwhile."""
         global _TRACE_COUNT
         with self._lock:
             entry = self._graphs.get(key)
@@ -408,21 +448,7 @@ class _GraphTable:
                 self._graphs[key] = entry
                 while len(self._graphs) > _GRAPHS_MAX:
                     self._graphs.popitem(last=False)
-            else:
-                self._graphs.move_to_end(key)
-        devices = {t.device for t in entry.static}
-        with entry.lock:
-            for d in devices:                # the last caller's clone-out
-                if d in entry.done:
-                    torch.cuda.current_stream(d).wait_event(entry.done[d])
-            for buf, t in zip(entry.static, inputs):
-                buf.copy_(t)
-            entry.replay()
-            outs = _clone(entry.outs)
-            for d in devices:
-                entry.done[d] = torch.cuda.Event()
-                entry.done[d].record(torch.cuda.current_stream(d))
-        return outs
+            return entry
 
 
 class CompiledForward:
@@ -574,9 +600,10 @@ class ShardedForward:
                     with _on(x.device):
                         g[s].replay()
                 if pin and s < n_seg - 1:
-                    amax = _batch_amax([a[s] for a in amaxes])
-                    for scale in scales:
-                        scale.copy_(amax)
+                    with trace.span("executor.exchange"):
+                        amax = _batch_amax([a[s] for a in amaxes])
+                        for scale in scales:
+                            scale.copy_(amax)
         return _Captured(replay, static, [sh.logits for sh in shards])
 
 

@@ -69,6 +69,7 @@ from repro_torch.exec import executor as ex
 from repro_torch.exec import plan_cache as pc
 from repro_torch.exec.scheduler import CnnPlan, HardwareSpec, schedule_buckets
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.runtime import trace
 
 __all__ = ["ServingEngine", "MicroBatcher", "power_of_two_buckets",
            "bucket_for"]
@@ -202,7 +203,11 @@ class ServingEngine:
         self._batches = 0
         self._padded_slots = 0
         self._executed_slots = 0
+        # Wall time in which at least one blocking request was in flight
+        # (closed stretches; stats() adds the open one).
         self._busy_s = 0.0
+        self._in_flight = 0
+        self._flight_t0 = 0.0
         self._warm = False
         self._retraces = 0
         # Modeled photonic energy of the executed stream, per bucket from
@@ -230,10 +235,12 @@ class ServingEngine:
                     bucket: int) -> torch.Tensor:
         traces0 = ex.trace_count() if self._warm else 0
         if self._dp_bucket(bucket):
-            xs = [c.to(d) for c, d in zip(xb.chunk(len(self.devices)),
-                                          self.devices)]
-            logits = torch.cat([o.to(self.device) for o in
-                                self._dp_fns[bucket](self._params_dp, xs)])
+            with trace.span("serving.scatter"):
+                xs = [c.to(d) for c, d in zip(xb.chunk(len(self.devices)),
+                                              self.devices)]
+            outs = self._dp_fns[bucket](self._params_dp, xs)
+            with trace.span("serving.gather"):
+                logits = torch.cat([o.to(self.device) for o in outs])
         else:
             logits, _, _ = self._fns[bucket](self._params, xb, seed)
         if self._warm:
@@ -250,9 +257,14 @@ class ServingEngine:
         n = chunk.shape[0]
         bucket = bucket_for(n, self.buckets)
         pad = bucket - n
-        xb = (chunk if pad == 0 else torch.cat(
-            [chunk, chunk.new_zeros((pad,) + tuple(chunk.shape[1:]))]))
-        ex._validate(xb, self.plans[bucket], self._cfg, self._lowering, seed)
+        xb = chunk
+        if pad:
+            with trace.span("serving.pad"):
+                xb = torch.cat([chunk, chunk.new_zeros(
+                    (pad,) + tuple(chunk.shape[1:]))])
+        with trace.span("serving.validate"):
+            ex._validate(xb, self.plans[bucket], self._cfg, self._lowering,
+                         seed)
         logits = self._run_bucket(xb, seed, bucket)
         te = self._bucket_energy[bucket]
         with self._lock:
@@ -300,7 +312,7 @@ class ServingEngine:
         latency percentiles or sustained_ips.
         """
         t0 = time.perf_counter()
-        x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
+        x = torch.as_tensor(x)
         if x.dim() != 4:
             raise ValueError(f"x must be (N, H, W, C) images, got shape "
                              f"{tuple(x.shape)} — for a single image use "
@@ -310,29 +322,45 @@ class ServingEngine:
             raise ValueError("empty request: x has batch 0")
         if not self._cfg.noise_enabled:
             seed = None
-        outs: List[torch.Tensor] = []
-        start, ci = 0, 0
         n_chunks = -(-n // self.max_bucket)
-        while start < n:
-            take = min(self.max_bucket, n - start)
-            cs = (fold_seed(seed, ci)
-                  if seed is not None and n_chunks > 1 else seed)
-            outs.append(self._infer_chunk(x[start:start + take], cs))
-            start += take
-            ci += 1
-        logits = outs[0] if len(outs) == 1 else torch.cat(outs)
         if block:
-            self._sync()
-        dt = time.perf_counter() - t0
-        with self._lock:
-            self._requests += 1
-            self._images += n
-            if block:
-                self._blocked_images += n
-                self._busy_s += dt
-                self._latencies.append(dt)
-                if len(self._latencies) > _LATENCY_WINDOW:
-                    del self._latencies[:-_LATENCY_WINDOW]
+            with self._lock:
+                if not self._in_flight:
+                    self._flight_t0 = t0
+                self._in_flight += 1
+        done = False
+        try:
+            with trace.request("serving.infer", n, n_chunks):
+                x = x.to(device=self.device, dtype=torch.float32)
+                outs: List[torch.Tensor] = []
+                start, ci = 0, 0
+                while start < n:
+                    take = min(self.max_bucket, n - start)
+                    cs = (fold_seed(seed, ci)
+                          if seed is not None and n_chunks > 1 else seed)
+                    outs.append(self._infer_chunk(x[start:start + take], cs))
+                    start += take
+                    ci += 1
+                logits = outs[0] if len(outs) == 1 else torch.cat(outs)
+                if block:
+                    with trace.span("serving.sync"):
+                        self._sync()
+                done = True
+        finally:
+            t1 = time.perf_counter()
+            with self._lock:
+                if block:
+                    self._in_flight -= 1
+                    if not self._in_flight:
+                        self._busy_s += t1 - self._flight_t0
+                if done:
+                    self._requests += 1
+                    self._images += n
+                    if block:
+                        self._blocked_images += n
+                        self._latencies.append(t1 - t0)
+                        if len(self._latencies) > _LATENCY_WINDOW:
+                            del self._latencies[:-_LATENCY_WINDOW]
         return logits
 
     def infer_one(self, image, seed: Optional[int] = None) -> torch.Tensor:
@@ -345,8 +373,11 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Serving metrics + the cache and capture hooks."""
+        now = time.perf_counter()
         with self._lock:
             lat = sorted(self._latencies)
+            busy = self._busy_s + (now - self._flight_t0
+                                   if self._in_flight else 0.0)
             warm = self._warm
             retraces = self._retraces
             out = {
@@ -361,8 +392,10 @@ class ServingEngine:
                 "latency_p50_s": _percentile(lat, 0.50),
                 "latency_p99_s": _percentile(lat, 0.99),
                 "latency_mean_s": (sum(lat) / len(lat)) if lat else 0.0,
-                "sustained_ips": (self._blocked_images / self._busy_s
-                                  if self._busy_s > 0 else 0.0),
+                # Images of blocking requests over the wall time in which
+                # at least one was in flight (concurrent requests overlap).
+                "sustained_ips": (self._blocked_images / busy
+                                  if busy > 0 else 0.0),
                 "buckets": list(self.buckets),
                 "data_parallel": self.data_parallel,
                 "n_devices": len(self.devices),

@@ -19,10 +19,11 @@ encoder-decoder and moe prefills end to end through the kernels — and
 hold the compiled paths: the CNN forward captured in a CUDA graph
 bit-equal to the eager forward for every resnet_mini bucket (both
 policies, noise off and on from one seed), no capture after warmup, eight
-threads served bitwise, data-parallel serving's per-entry graphs (two
-entries of one card, and every card where there are two or more) bitwise
-equal to one device and the plain route, and a graphed decode step equal
-to the eager one
+threads served bitwise, a request behind another of its bucket recording
+the wait (``executor.graph_wait``), data-parallel serving's per-entry
+graphs (two entries of one card, and every card where there are two or
+more) bitwise equal to one device and the plain route, and a graphed
+decode step equal to the eager one
 — and hold training on the card: gradients through the default forward
 bit-equal to the plain routes' (the forward-only SSD and flash kernels
 stay out of a backward), and the trainer's loss, resume and photonic QAT
@@ -896,6 +897,52 @@ def test_threads_serve_concurrently_bitwise_on_card(cuda):
         assert len(got) == 10 and all(torch.equal(g, want) for g in got)
     assert engine.stats()["retraces_since_warmup"] == 0
 
+
+
+def test_graph_wait_records_a_request_behind_its_bucket_on_card(cuda):
+    """Two threads send the same bucket under a profiler session; the
+    first holds the bucket's graph (its replay slowed by 50 ms), so the
+    second's ``executor.graph_wait`` span holds that wait and the first's
+    does not."""
+    import threading
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.exec import ServingEngine, executor
+    from repro_torch.runtime import trace
+    model, params, acc, cfg = _resnet_mini(cuda, Backend.HEANA)
+    executor.clear_compile_cache()       # this engine's graphs alone
+    engine = ServingEngine(params, acc, cfg, lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=8,
+                           plan_cache=PlanCache(), device=cuda)
+    engine.warmup()
+    entry, = engine._fns[4]._graphs._graphs.values()
+    replay, inside = entry.replay, threading.Event()
+
+    def slow_replay():
+        replay()
+        inside.set()
+        time.sleep(0.05)
+
+    entry.replay = slow_replay
+    x = torch.randn(4, *model.in_hw, model.in_ch, device=cuda)
+
+    def second():
+        assert inside.wait(timeout=60)
+        engine.infer(x)
+
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        threads = [threading.Thread(target=engine.infer, args=(x,)),
+                   threading.Thread(target=second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    waits = sorted((s.end_ns - s.start_ns) * 1e-9 for s in trace.spans()
+                   if s.name == "executor.graph_wait")
+    trace.clear()
+    assert len(waits) == 2
+    assert waits[0] < 0.01 and waits[1] > 0.03, waits
 
 def _dp_entries(cuda, entries):
     if entries == "repeated":
