@@ -165,10 +165,11 @@ def _norm_lowering(lowering):
     return tuple(lowering)
 
 
-def _layer_matmul(cols: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
+def _layer_matmul(operand, w: torch.Tensor, cfg: PhotonicConfig,
                   noise: Optional[torch.Tensor], plan: LayerPlan,
                   impl: str) -> torch.Tensor:
-    return ops.photonic_matmul(cols, w, cfg, noise=noise, impl=impl,
+    # operand: a 2-D matrix or a conv's lw.ConvOperand (graph_steps).
+    return ops.photonic_matmul(operand, w, cfg, noise=noise, impl=impl,
                                block_m=plan.tile.block_m,
                                block_d=plan.tile.block_d)
 
@@ -231,9 +232,8 @@ def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
     """
     graph = cnn_mod.as_graph(lowering, plan=plan)
 
-    def mm(a2d: torch.Tensor, w2d: torch.Tensor, gi: int,
-           node: lw.OpNode) -> torch.Tensor:
-        return _layer_matmul(a2d, w2d, cfg,
+    def mm(a, w2d: torch.Tensor, gi: int, node: lw.OpNode) -> torch.Tensor:
+        return _layer_matmul(a, w2d, cfg,
                              None if noise is None else noise[gi],
                              plan.layers[gi], impl)
 
@@ -283,18 +283,25 @@ class _Shard:
                 ) -> Optional[torch.Tensor]:
         try:
             if self._gemm is None:
-                self._gemm = next(self._steps)
+                self._gemm = self._next(next(self._steps))
             else:
                 cols, w, gi, _ = self._gemm
                 out = _layer_matmul(
                     _pin_row(cols, amax) if self._pin else cols, w,
                     self._cfg, None, self._plan.layers[gi], self._impl)
-                self._gemm = self._steps.send(out[:-1] if self._pin
-                                              else out)
+                self._gemm = self._next(self._steps.send(
+                    out[:-1] if self._pin else out))
         except StopIteration as done:
             self.logits = done.value[self._out]
             return None
         return self._gemm[0].abs().amax() if self._pin else None
+
+    def _next(self, gemm: tuple) -> tuple:
+        # A pinned operand needs a real row: the im2col matrix (a view of
+        # the activation at 1x1, stride 1); unpinned, the operand as it is.
+        if not self._pin:
+            return gemm
+        return (lw.gemm_matrix(gemm[0]),) + tuple(gemm[1:])
 
 
 def _batch_amax(local: Sequence[torch.Tensor]) -> torch.Tensor:

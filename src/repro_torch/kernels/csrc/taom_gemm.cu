@@ -13,7 +13,11 @@
 //     staged layout (k-contiguous, chunks cut into zero-padded pieces);
 //     where the GEMM has more than one column tile or K has four pieces or
 //     more (and staging does not inflate x), taom_gemm_quant_x_kernel
-//     quantizes x once into s8 planes of the same layout;
+//     quantizes x once into s8 planes of the same layout.  x may instead be
+//     a convolution's NHWC input read as its windows (implicit im2col,
+//     Windows below): the absmax kernel then reduces |x| over the pixels
+//     some window covers and taom_gemm_quant_x_kernel, always launched,
+//     gathers each window's elements, so that no im2col matrix is written;
 //     taom_gemm_int8_kernel reduces the partials to x's scale, quantizes x
 //     into shared memory (or copies its planes in), multiplies on the
 //     tensor cores (mma.sync m16n8k32 s8 x s8 -> s32, exact), applies the
@@ -386,7 +390,23 @@ __device__ __forceinline__ float x_scale(const float* partials,
   return *out;
 }
 
-// Blocks [0, n_xblocks) write partial maxima of |x| to partials.  The
+// x as a convolution's windows (implicit im2col): x is the NHWC input
+// (images, h, w, c) and GEMM row r = (b, oy, ox), K position kk = (i * kw +
+// j) * c + ch is x[b, oy * stride + i - top, ox * stride + j - left, ch],
+// zero outside the image: the element of the im2col matrix (K ordered
+// window-position-major, channel-minor).  For the |max|, the positions some
+// window covers along an axis: t < count stands for (t / run) * period +
+// t % run - off, skipped outside [0, size) (taom_gemm.covered_axis).
+struct Windows {
+  int on;                 // 0: x is the (M, K) matrix itself
+  int images, h, w, c, kh, kw, stride, top, left, oh, ow;
+  int ycount, yrun, yperiod, yoff, xcount, xrun, xperiod, xoff;
+  int full;               // every pixel is covered: x is reduced flat
+};
+
+// Blocks [0, n_xblocks) write partial maxima of |x| to partials (with
+// windows that leave pixels out, over the covered pixels only: the zeros
+// of the padding never raise a |max|).  The
 // others each own 32 columns of w: they write the columns' scales
 // sw[d] = max(max_k |w[k, d]|, eps) * inv_qmax and the quantized columns
 // as P s8 planes of (D, kp) bytes, w_plane bytes apart, in the GEMM's
@@ -400,7 +420,8 @@ taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
                         int n_chunks, int slot, int kp, int n_xblocks,
                         float* __restrict__ partials, float* __restrict__ sw,
                         unsigned char* __restrict__ wq, long long w_plane,
-                        float eps, float inv_qmax, float qmax) {
+                        float eps, float inv_qmax, float qmax,
+                        const Windows g) {
   constexpr int kRowGroups = kAbsThreads / kColGroup;
   constexpr int kPerThread = 8;
   constexpr int kKTile = kPerThread * kRowGroups;   // K rows per w tile
@@ -415,22 +436,54 @@ taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
     const long long first =
         static_cast<long long>(blockIdx.x) * kAbsThreads + tid;
     const long long stride = static_cast<long long>(n_xblocks) * kAbsThreads;
-    long long done = 0;
-    if (x_vec) {
-      constexpr int V = Vec<XT>::n;
-      const long long nv = nx / V;
-#pragma unroll 4
-      for (long long i = first; i < nv; i += stride) {
-        float v[V];
-        ld_vec(x + i * V, v);
+    constexpr int V = Vec<XT>::n;
+    if (g.on && !g.full) {
+      // A block a covered input row (image-major) at a time, its threads
+      // over the row's covered pixels and channels: a 16-byte vector an
+      // item where a pixel holds whole vectors.
+      const int per = x_vec && g.c % V == 0 ? V : 1;
+      const int items_px = g.c / per;
+      const int row_items = g.xcount * items_px;
+      for (int u = blockIdx.x; u < g.images * g.ycount; u += n_xblocks) {
+        const int b = u / g.ycount;
+        const int ty = u - b * g.ycount;
+        const int y = ty / g.yrun * g.yperiod + ty % g.yrun - g.yoff;
+        if (y < 0 || y >= g.h) continue;
+        const XT* row =
+            x + (static_cast<long long>(b) * g.h + y) * g.w * g.c;
+        for (int it = tid; it < row_items; it += kAbsThreads) {
+          const int tx = it / items_px;
+          const int xx = tx / g.xrun * g.xperiod + tx % g.xrun - g.xoff;
+          if (xx < 0 || xx >= g.w) continue;
+          const XT* p = row + static_cast<long long>(xx) * g.c +
+                        (it - tx * items_px) * per;
+          if (per == V) {
+            float v[V];
+            ld_vec(p, v);
 #pragma unroll
-        for (int j = 0; j < V; ++j) mx = nan_max(mx, fabsf(v[j]));
+            for (int j = 0; j < V; ++j) mx = nan_max(mx, fabsf(v[j]));
+          } else {
+            mx = nan_max(mx, fabsf(ld_elem(p)));
+          }
+        }
       }
-      done = nv * V;
-    }
+    } else {
+      long long done = 0;
+      if (x_vec) {
+        const long long nv = nx / V;
 #pragma unroll 4
-    for (long long i = done + first; i < nx; i += stride)
-      mx = nan_max(mx, fabsf(ld_elem(x + i)));
+        for (long long i = first; i < nv; i += stride) {
+          float v[V];
+          ld_vec(x + i * V, v);
+#pragma unroll
+          for (int j = 0; j < V; ++j) mx = nan_max(mx, fabsf(v[j]));
+        }
+        done = nv * V;
+      }
+#pragma unroll 4
+      for (long long i = done + first; i < nx; i += stride)
+        mx = nan_max(mx, fabsf(ld_elem(x + i)));
+    }
     // A shuffle reduction in each warp, then one across the warps.
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -529,13 +582,41 @@ taom_gemm_absmax_kernel(const XT* __restrict__ x, long long nx, int x_vec,
 // GEMM of several column tiles, which then copy x's pieces in with
 // cp.async instead of each quantizing its own copy of x's rows.  Every
 // block reduces the partial maxima to x's scale as the GEMM does.
-template <typename XT, int P>
+//
+// WIN: x is a convolution's input read as its windows (Windows).  Each
+// block first tabulates what every staged position of a row holds
+// (window_entry), in kp ints of shared memory; then each warp takes an
+// output pixel at a time, its lanes a word (4 positions) each, so that a
+// row costs two divisions and a position a table read, two bounds checks
+// and a load (neighbouring pixels' windows overlap, and the input is read
+// again from the caches).
+constexpr unsigned kNoEntry = 0xffffffffu;   // past its chunk's end
+
+// Staged position p of a row: (i << 28) | (j << 24) | ((i w + j) c + ch)
+// for window position (i, j), channel ch (kh, kw <= 15 and the offset
+// below 2^24: taom_gemm.window_plan), or kNoEntry.
+__device__ __forceinline__ unsigned window_entry(int p, int n, int k,
+                                                 int slot, int ppc,
+                                                 const Windows& g) {
+  const int piece = p / slot;
+  const int c = piece / ppc;
+  const int within = (piece - c * ppc) * slot + (p - piece * slot);
+  if (within >= min(n, k - c * n)) return kNoEntry;
+  const int kk = c * n + within;
+  const int q = kk / g.c;
+  const int i = q / g.kw;
+  const int j = q - i * g.kw;
+  return (static_cast<unsigned>(i) << 28) | (static_cast<unsigned>(j) << 24) |
+         static_cast<unsigned>((i * g.w + j) * g.c + kk - q * g.c);
+}
+
+template <typename XT, int P, bool WIN>
 __global__ void __launch_bounds__(kQuantXThreads)
 taom_gemm_quant_x_kernel(const XT* __restrict__ x, int m, int k, int n,
                          int slot, int kp, const float* __restrict__ partials,
                          int n_partials, float eps, float inv_qmax,
                          float qmax, unsigned char* __restrict__ xq,
-                         long long x_plane) {
+                         long long x_plane, const Windows g) {
   __shared__ float red[kQuantXThreads / 32];
   __shared__ float sx_s;
   const Scale sc = make_scale(x_scale(partials, n_partials, eps, inv_qmax,
@@ -543,6 +624,51 @@ taom_gemm_quant_x_kernel(const XT* __restrict__ x, int m, int k, int n,
   const int iqmax = static_cast<int>(qmax);
   const int ppc = (n + slot - 1) / slot;
   const int wpr = kp >> 2;                       // words a row
+  if constexpr (WIN) {
+    extern __shared__ __align__(16) unsigned table[];   // kp entries
+    for (int p = threadIdx.x; p < kp; p += blockDim.x)
+      table[p] = window_entry(p, n, k, slot, ppc, g);
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    const int warps = gridDim.x * (blockDim.x >> 5);
+    const int pix = g.oh * g.ow;
+    for (int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); r < m;
+         r += warps) {
+      const int b = r / pix;
+      const int o = r - b * pix;
+      const int oy = o / g.ow;
+      const int y0 = oy * g.stride - g.top;
+      const int x0 = (o - oy * g.ow) * g.stride - g.left;
+      // The window's first element (maybe outside the image: only offsets
+      // that land inside are read).
+      const long long base =
+          ((static_cast<long long>(b) * g.h + y0) * g.w + x0) * g.c;
+      unsigned char* dst = xq + static_cast<long long>(r) * kp;
+      for (int wd = lane; wd < wpr; wd += 32) {
+        const uint4 e4 = reinterpret_cast<const uint4*>(table)[wd];
+        const unsigned es[4] = {e4.x, e4.y, e4.z, e4.w};
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned e = es[j];
+          const int y = y0 + static_cast<int>(e >> 28);
+          const int xx = x0 + static_cast<int>((e >> 24) & 15u);
+          const bool in =
+              e != kNoEntry &&
+              static_cast<unsigned>(y) < static_cast<unsigned>(g.h) &&
+              static_cast<unsigned>(xx) < static_cast<unsigned>(g.w);
+          v[j] = in ? ld_elem(x + (base + (e & 0xffffffu))) : 0.0f;
+        }
+        uint32_t word[P];
+        quant_words<P>(v, sc, iqmax, word);
+#pragma unroll
+        for (int pl = 0; pl < P; ++pl)
+          *reinterpret_cast<uint32_t*>(dst + pl * x_plane + 4 * wd) =
+              word[pl];
+      }
+    }
+    return;
+  }
   const long long words = static_cast<long long>(m) * wpr;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -1082,7 +1208,8 @@ long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
 template <typename XT, typename WT, int P>
 cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
                          int tile_d, int height, int n_xblocks, int x_vec,
-                         int x_once, int small, cudaStream_t stream) {
+                         int x_once, int small, const Windows& g,
+                         cudaStream_t stream) {
   // scratch: w's planes, x's planes (x_once), partials, column scales;
   // each region starts on 16 bytes.
   a.w_plane = static_cast<long long>(a.d) * a.kp;
@@ -1096,19 +1223,21 @@ cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
   // Long columns of w take 1024 threads (32 rows of a column at once), the
   // short ones of the CNN's GEMMs 256.
   const XT* x = static_cast<const XT*>(a.x);
-  const long long nx = static_cast<long long>(a.m) * a.k;
+  const long long nx = g.on ? static_cast<long long>(g.images) * g.h * g.w *
+                                  g.c
+                            : static_cast<long long>(a.m) * a.k;
   if (a.k > 256) {
     taom_gemm_absmax_kernel<XT, WT, 1024, P>
         <<<n_xblocks + col_blocks, 1024, 0, stream>>>(
             x, nx, x_vec, w, a.k, a.d, a.n, a.n_chunks, a.slot, a.kp,
             n_xblocks, partials, sw, wq, a.w_plane, a.eps, a.inv_qmax,
-            a.qmax);
+            a.qmax, g);
   } else {
     taom_gemm_absmax_kernel<XT, WT, 256, P>
         <<<n_xblocks + col_blocks, 256, 0, stream>>>(
             x, nx, x_vec, w, a.k, a.d, a.n, a.n_chunks, a.slot, a.kp,
             n_xblocks, partials, sw, wq, a.w_plane, a.eps, a.inv_qmax,
-            a.qmax);
+            a.qmax, g);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1130,10 +1259,23 @@ cudaError_t launch_fused(Int8Args a, const WT* w, unsigned char* scratch,
   if (x_once) {
     const long long words = a.x_plane / 4;
     const long long want = (words + kQuantXThreads - 1) / kQuantXThreads;
-    const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-    taom_gemm_quant_x_kernel<XT, P><<<blocks, kQuantXThreads, 0, stream>>>(
-        x, a.m, a.k, a.n, a.slot, a.kp, partials, n_xblocks, a.eps,
-        a.inv_qmax, a.qmax, xq, a.x_plane);
+    if (g.on) {
+      // A warp a row; a block's table of kp ints (at most 48 KiB,
+      // taom_gemm.window_plan).
+      const int rows = kQuantXThreads / 32;
+      const int blocks = (a.m + rows - 1) / rows;
+      taom_gemm_quant_x_kernel<XT, P, true>
+          <<<blocks < 132 * 8 ? blocks : 132 * 8, kQuantXThreads,
+             a.kp * static_cast<int>(sizeof(unsigned)), stream>>>(
+              x, a.m, a.k, a.n, a.slot, a.kp, partials, n_xblocks, a.eps,
+              a.inv_qmax, a.qmax, xq, a.x_plane, g);
+    } else {
+      const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+      taom_gemm_quant_x_kernel<XT, P, false>
+          <<<blocks, kQuantXThreads, 0, stream>>>(
+              x, a.m, a.k, a.n, a.slot, a.kp, partials, n_xblocks, a.eps,
+              a.inv_qmax, a.qmax, xq, a.x_plane, g);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     a.xq = xq;
@@ -1146,13 +1288,13 @@ template <typename XT, typename WT>
 cudaError_t launch_planes(const Int8Args& a, const WT* w,
                           unsigned char* scratch, int planes, int tile_d,
                           int height, int n_xblocks, int x_vec, int x_once,
-                          int small, cudaStream_t stream) {
+                          int small, const Windows& g, cudaStream_t stream) {
   return planes == 2
              ? launch_fused<XT, WT, 2>(a, w, scratch, tile_d, height,
-                                       n_xblocks, x_vec, x_once, small,
+                                       n_xblocks, x_vec, x_once, small, g,
                                        stream)
              : launch_fused<XT, WT, 1>(a, w, scratch, tile_d, height,
-                                       n_xblocks, x_vec, x_once, small,
+                                       n_xblocks, x_vec, x_once, small, g,
                                        stream);
 }
 
@@ -1208,7 +1350,11 @@ extern "C" int taom_gemm_f32(const float* x, const float* w,
 // x is 16-byte aligned: the absmax kernel then reads it in 16-byte
 // vectors.  x_once (small = 0):
 // quantize x once (taom_gemm_quant_x_kernel, a third launch) instead of in
-// every column tile.  Returns the first nonzero cudaGetLastError() of the
+// every column tile.  conv: null, or x is a convolution's NHWC input and
+// the GEMM's x its windows (Windows; needs x_once and small = 0): 19 ints,
+// images, h, w, c, kh, kw, stride, top, left, oh, ow, then the covered
+// positions of each axis (count, run, period, off), rows then columns.
+// Returns the first nonzero cudaGetLastError() of the
 // launches (and of raising a kernel's shared memory limit), or 0.
 extern "C" int taom_gemm_int8(const void* x, const void* w,
                               const float* noise, void* out, void* scratch,
@@ -1218,7 +1364,8 @@ extern "C" int taom_gemm_int8(const void* x, const void* w,
                               float qmax, float inv_qmax, float eps,
                               int tile_d, int height, int slot,
                               int n_xblocks, int kp, int x_vec, int planes,
-                              int x_once, int small, void* stream_ptr) {
+                              int x_once, int small, const int* conv,
+                              void* stream_ptr) {
   const bool planes_ok = (planes == 1 && qmax <= 127.0f) ||
                          (planes == 2 && qmax <= 255.0f);
   const bool tiles_ok =
@@ -1232,6 +1379,25 @@ extern "C" int taom_gemm_int8(const void* x, const void* w,
   if (!planes_ok || !tiles_ok || n_xblocks < 1 ||
       kp != n_chunks * ((n + slot - 1) / slot) * slot) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Windows g{};
+  if (conv != nullptr) {
+    int* const fields[] = {&g.images, &g.h,       &g.w,      &g.c,
+                           &g.kh,     &g.kw,      &g.stride, &g.top,
+                           &g.left,   &g.oh,      &g.ow,     &g.ycount,
+                           &g.yrun,   &g.yperiod, &g.yoff,   &g.xcount,
+                           &g.xrun,   &g.xperiod, &g.xoff};
+    for (int i = 0; i < 19; ++i) *fields[i] = conv[i];
+    g.on = 1;
+    g.full = g.yrun == g.ycount && g.ycount == g.h && g.yoff == 0 &&
+             g.xrun == g.xcount && g.xcount == g.w && g.xoff == 0;
+    const bool shape_ok =
+        g.images > 0 && g.c > 0 && g.oh > 0 && g.ow > 0 && g.kw > 0 &&
+        g.yrun > 0 && g.xrun > 0 &&
+        static_cast<long long>(g.images) * g.oh * g.ow == m &&
+        static_cast<long long>(g.kh) * g.kw * g.c == k;
+    if (!shape_ok || !x_once || small)
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   unsigned char* buf = static_cast<unsigned char*>(scratch);
@@ -1261,17 +1427,17 @@ extern "C" int taom_gemm_int8(const void* x, const void* w,
   if (x_bf16) {
     err = w_bf16 ? launch_planes<bf16, bf16>(a, wb, buf, planes, tile_d,
                                              height, n_xblocks, x_vec,
-                                             x_once, small, stream)
+                                             x_once, small, g, stream)
                  : launch_planes<bf16, float>(a, wf, buf, planes, tile_d,
                                               height, n_xblocks, x_vec,
-                                              x_once, small, stream);
+                                              x_once, small, g, stream);
   } else {
     err = w_bf16 ? launch_planes<float, bf16>(a, wb, buf, planes, tile_d,
                                               height, n_xblocks, x_vec,
-                                              x_once, small, stream)
+                                              x_once, small, g, stream)
                  : launch_planes<float, float>(a, wf, buf, planes, tile_d,
                                                height, n_xblocks, x_vec,
-                                               x_once, small, stream);
+                                               x_once, small, g, stream);
   }
   return static_cast<int>(err);
 }

@@ -14,7 +14,10 @@ planes) take the fused route, which does all three in its two or three
 kernels (``taom_gemm_fused``); bits >= 9, or 8 bits at ``dpe_size >=
 259``, are quantized and rescaled here around the float32 body
 (``taom_gemm_quantized``).  CPU tensors, or ``impl="ref"``, take the plain
-version (``kernels/ref.photonic_gemm_reference``).
+version (``kernels/ref.photonic_gemm_reference``).  x may be a
+convolution's operand (``models.lowering.ConvOperand``): the fused route
+reads its windows from the NHWC input where it can (``_read_windows``),
+and every other route takes its im2col matrix.
 The backward is the straight-through estimator of the reference's
 ``custom_vjp``: gradients of an exact matmul, ``g @ w.T`` and ``x.T @ g``.
 
@@ -53,6 +56,7 @@ from repro_torch.kernels import flash_attention as flash_kernel_mod
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import ssd_scan as ssd_kernel_mod
 from repro_torch.kernels import taom_gemm as taom_kernel_mod
+from repro_torch.models.lowering import ConvOperand
 
 IMPLS = ("auto", "kernel", "ref")
 
@@ -89,20 +93,23 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 _INT8_INPUTS = (torch.float32, torch.bfloat16)
 
 
+def _fused_input(t: torch.Tensor) -> torch.Tensor:
+    # The fused route takes float32 or bfloat16 operands; any other type is
+    # widened as the reference's quantize widens it.
+    return (t if t.dtype in _INT8_INPUTS else t.to(torch.float32)
+            ).contiguous()
+
+
 def _taom_forward(x2d: torch.Tensor, w: torch.Tensor,
                   noise: Optional[torch.Tensor],
                   cfg: PhotonicConfig, adc_fs: float, impl: str,
-                  blocks: tuple) -> torch.Tensor:
+                  blocks: tuple, operand: str = "matrix") -> torch.Tensor:
     if impl == "ref":
         return ref_mod.photonic_gemm_reference(x2d, w, noise, cfg, adc_fs)
     if taom_kernel_mod.taom_route(cfg) != "float32":
-        # The fused route takes float32 or bfloat16 operands; any other
-        # type is widened as the reference's quantize widens it.
-        xk = x2d if x2d.dtype in _INT8_INPUTS else x2d.to(torch.float32)
-        wk = w if w.dtype in _INT8_INPUTS else w.to(torch.float32)
         out = taom_kernel_mod.taom_gemm_fused(
-            xk.contiguous(), wk.contiguous(), noise, cfg, adc_fs,
-            block_m=blocks[0], block_d=blocks[1])
+            _fused_input(x2d), _fused_input(w), noise, cfg, adc_fs,
+            block_m=blocks[0], block_d=blocks[1], operand=operand)
         return out.to(x2d.dtype)
     f32 = torch.float32
     xq, sx = quantize(x2d.to(f32), cfg.bits, axis=None)
@@ -117,16 +124,43 @@ class _TaomSTE(torch.autograd.Function):
     """Photonic forward, exact-matmul (straight-through) backward."""
 
     @staticmethod
-    def forward(ctx, x2d, w, noise, cfg, adc_fs, impl, blocks):
+    def forward(ctx, x2d, w, noise, cfg, adc_fs, impl, blocks, operand):
         ctx.save_for_backward(x2d, w)
-        return _taom_forward(x2d, w, noise, cfg, adc_fs, impl, blocks)
+        return _taom_forward(x2d, w, noise, cfg, adc_fs, impl, blocks,
+                             operand)
 
     @staticmethod
     def backward(ctx, g):
         x2d, w = ctx.saved_tensors
         gx = (g @ w.T).to(x2d.dtype) if ctx.needs_input_grad[0] else None
         gw = (x2d.T @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
-        return gx, gw, None, None, None, None, None
+        return gx, gw, None, None, None, None, None, None
+
+
+def _read_windows(conv: ConvOperand, w: torch.Tensor,
+                  noise: Optional[torch.Tensor], cfg: PhotonicConfig,
+                  adc_fs: float, impl: str, blocks: tuple
+                  ) -> Optional[torch.Tensor]:
+    """The fused route on a convolution's windows, read from its NHWC
+    input (``taom_gemm_fused``'s ``windows``), or None where the operand
+    has to be the im2col matrix: a 1x1 stride-1 operand (the matrix is a
+    view), another route, an input that needs a gradient, or a GEMM whose
+    plan cannot read windows (``taom_gemm.window_plan``)."""
+    x = conv.x
+    route = taom_kernel_mod.taom_route(cfg)
+    if (impl != "kernel" or conv.kind != "implicit" or route == "float32"
+            or x.dtype not in _INT8_INPUTS or (torch.is_grad_enabled() and
+                                             (x.requires_grad or
+                                              w.requires_grad))):
+        return None
+    windows = conv.windows
+    if taom_kernel_mod.window_plan(
+            tuple(x.shape), windows, w.shape[-1], cfg.dpe_size, blocks[1],
+            planes=1 if route == "int8" else 2) is None:
+        return None
+    return taom_kernel_mod.taom_gemm_fused(
+        x.contiguous(), _fused_input(w), noise, cfg, adc_fs, block_m=blocks[0],
+        block_d=blocks[1], windows=windows)
 
 
 def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
@@ -135,7 +169,8 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
                     adc_fs: Optional[float] = None,
                     block_m: int = 128, block_d: int = 128,
                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Photonic-numerics matmul: (..., K) @ (K, D) -> (..., D).
+    """Photonic-numerics matmul: (..., K) @ (K, D) -> (..., D), or a
+    ``ConvOperand`` (M, K) @ (K, D) -> (M, D).
 
     impl: 'auto' (the kernel for CUDA tensors, the plain version for CPU
     tensors) | 'kernel' | 'ref'.  adc_fs: calibrated PGA full scale;
@@ -152,8 +187,11 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
     reads it from static buffers.  The EXACT backend bypasses the
     photonic pipeline, so ``noise_enabled`` does not apply.
     """
+    conv = x if isinstance(x, ConvOperand) else None
+    if conv is not None:
+        x = conv.x
     if cfg.backend == Backend.EXACT:
-        return x @ w
+        return (x if conv is None else conv.matrix()) @ w
     impl = resolve_impl(impl, (x, w), forward_only=False)
     if cfg.noise_enabled and generator is None and noise is None:
         raise ValueError(
@@ -161,14 +199,19 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
             "detection noise needs a torch.Generator on x's device (or "
             "pre-drawn noise); or set noise_enabled=False to run "
             "deterministically")
+    if conv is None:
+        batch_shape = x.shape[:-1]
+        x2d = x.reshape(-1, x.shape[-1])
+        shape2d = tuple(x2d.shape)
+    else:
+        shape2d = conv.shape
+        batch_shape = shape2d[:1]
     if adc_fs is None:
-        adc_fs = taom_kernel_mod.calibrated_adc_fs(x.shape[-1], cfg)
-    batch_shape = x.shape[:-1]
-    x2d = x.reshape(-1, x.shape[-1])
+        adc_fs = taom_kernel_mod.calibrated_adc_fs(shape2d[1], cfg)
     if not cfg.noise_enabled:
         noise = None                # noise off: the GEMM skips the term
     elif noise is not None:
-        want = noise_shape(tuple(x2d.shape), tuple(w.shape), cfg)
+        want = noise_shape(shape2d, tuple(w.shape), cfg)
         if tuple(noise.shape) != want or noise.device != x.device:
             raise ValueError(f"noise is {tuple(noise.shape)} on "
                              f"{noise.device}, the GEMM needs {want} on "
@@ -177,12 +220,20 @@ def photonic_matmul(x: torch.Tensor, w: torch.Tensor, cfg: PhotonicConfig,
         if not _same_device(generator.device, x.device):
             raise ValueError(f"generator is on {generator.device} but x is "
                              f"on {x.device}")
-        noise = sample_noise(generator, tuple(x2d.shape), tuple(w.shape), cfg)
+        noise = sample_noise(generator, shape2d, tuple(w.shape), cfg)
     if noise is not None:
         if cfg.backend in CHUNK_ADC_BACKENDS:
             noise = noise.movedim(-2, 0).contiguous()   # (M,C,D) -> (C,M,D)
-    out = _TaomSTE.apply(x2d, w, noise, cfg, float(adc_fs), impl,
-                         (int(block_m), int(block_d)))
+    blocks = (int(block_m), int(block_d))
+    operand = "matrix"
+    if conv is not None:
+        out = _read_windows(conv, w, noise, cfg, float(adc_fs), impl, blocks)
+        if out is not None:
+            return out
+        x2d, operand = conv.matrix(), (
+            "view" if conv.kind == "view" else "matrix")
+    out = _TaomSTE.apply(x2d, w, noise, cfg, float(adc_fs), impl, blocks,
+                         operand)
     return out.reshape(*batch_shape, w.shape[-1])
 
 

@@ -34,7 +34,12 @@ Three routes, one chosen by ``taom_route``:
   one s8 plane; ``"s8x2"`` splits each q in [-255, 255] into two, q = 16
   h + l with h in [-16, 15] and l in [0, 15], four products a chunk,
   combined exactly in s32 (the source proves it).  x is float32 or
-  bfloat16, and so is the output.
+  bfloat16, and so is the output.  x may also be a convolution's windows
+  (``windows``: the NHWC input and the geometry; implicit im2col): the
+  absmax kernel then reduces |x| over the input pixels some window covers
+  (``covered_axis``), and the quantize-x kernel, always launched, gathers
+  each window's elements from the input, in the im2col matrix's K order
+  (``window_plan``); no float32 matrix is written.
 * ``"float32"`` (bits >= 9, or 8 bits at ``dpe_size >= 259``):
   ``taom_gemm_quantized``, the float32 body on pre-quantized operands; the
   caller quantizes and rescales.
@@ -103,6 +108,8 @@ X_ONCE_PIECES = 4                   # with one column tile, K pieces from
                                     # which x is quantized once
 SMALL_TILE_WIDTHS = (8, 16, 32)     # the small-chunk kernel's tile widths
 SMALL_THREADS = 256                 # its block
+WINDOW_TABLE_BYTES = 48 * 1024      # quantize-x's table of a row's staged
+                                    # positions, reading windows
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,7 +170,8 @@ def taom_route(cfg: PhotonicConfig) -> str:
 
 def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128,
               planes: int = 1, x_once: Optional[bool] = None,
-              small: Optional[bool] = None) -> dict:
+              small: Optional[bool] = None,
+              x_elems: Optional[int] = None) -> dict:
     """Launch shape of the fused route for an (M, K) @ (K, D) GEMM with
     chunks of N and ``planes`` s8 planes an operand (1: ``"int8"``, 2:
     ``"s8x2"``).
@@ -187,7 +195,8 @@ def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128,
     least ``X_ONCE_PIECES`` pieces, and the layout at most doubles K;
     otherwise each column tile quantizes its x rows on load, piece by
     piece).  Both: the tile's height in rows, the grid, the absmax
-    kernel's blocks, the bytes of one quantized row of a plane in the
+    kernel's blocks (for the ``x_elems`` elements of x it reads, by
+    default M K), the bytes of one quantized row of a plane in the
     staged layout (its C chunks, each cut into pieces of ``slot``
     positions and padded with zeros), and the bytes of the scratch buffer:
     w's planes, x's (``x_once``), the partial maxima and the column
@@ -214,7 +223,8 @@ def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128,
         tile_m = 16 * warps
         slot = min(_round_up(min(n, k), 32), SLOT_MAX)
     threads = 1024 if k > 256 else 256      # as the C entry point picks
-    x_blocks = max(1, min(ABSMAX_BLOCKS, -(-(m * k) // (threads * 16))))
+    x_elems = m * k if x_elems is None else x_elems
+    x_blocks = max(1, min(ABSMAX_BLOCKS, -(-x_elems // (threads * 16))))
     w_bytes = -(-k // n) * -(-n // slot) * slot
     if x_once is None:
         x_once = ((d_tiles > 1 or w_bytes // slot >= X_ONCE_PIECES) and
@@ -228,12 +238,58 @@ def int8_plan(m: int, k: int, d: int, n: int, block_d: int = 128,
             4 * (x_blocks + d)}
 
 
+def covered_axis(size: int, k: int, stride: int, before: int,
+                 out: int) -> Tuple[int, int, int, int]:
+    """The positions along one axis of a convolution's input that some
+    window covers, windows o < ``out`` covering [o * stride - before, + k):
+    (count, run, period, off), position t < count standing for (t // run)
+    * period + t % run - off, those outside [0, size) left out.  Where k >=
+    stride the windows tile one run from 0; else each covers a run of k
+    positions, ``stride`` apart."""
+    if k >= stride:
+        hi = min(size, (out - 1) * stride - before + k)
+        return hi, hi, 0, 0
+    return out * k, k, stride, before
+
+
+def window_plan(x_shape: Tuple[int, int, int, int],
+                windows: Tuple[int, ...], d: int, n: int,
+                block_d: int = 128, planes: int = 1) -> Optional[dict]:
+    """``int8_plan`` of a GEMM whose x is a convolution's windows
+    (``taom_gemm_fused``'s ``windows``) on the NHWC input of ``x_shape``:
+    x quantized once, by the kernel that gathers the windows, and the
+    absmax kernel's blocks sized from the covered pixels.  None where the
+    route cannot read windows: the small-chunk kernel (it reads x as a
+    matrix), a staged layout more than twice K (``x_once``'s own
+    condition), or past what the quantize-x kernel's table of a row's
+    staged positions holds (``WINDOW_TABLE_BYTES`` of shared memory; a
+    window of at most 15 x 15, its last element less than 2^24 elements
+    from its first)."""
+    images, h, w, c = x_shape
+    kh, kw, stride, top, left, oh, ow = windows
+    m, k = images * oh * ow, kh * kw * c
+    cover = (covered_axis(h, kh, stride, top, oh)[0] *
+             covered_axis(w, kw, stride, left, ow)[0])
+    plan = int8_plan(m, k, d, n, block_d, planes=planes, x_once=True,
+                     x_elems=images * cover * c)
+    if (plan["small"] or plan["w_bytes"] > 2 * k or
+            4 * plan["w_bytes"] > WINDOW_TABLE_BYTES or max(kh, kw) > 15 or
+            ((kh - 1) * w + kw) * c > 2 ** 24):
+        return None
+    return plan
+
+
 #: Launches of the CUDA kernels: +1 per wrapper call that launches (any
 #: route; the plain versions do not count), and per route in
 #: ``ROUTE_LAUNCHES``.  ``chip_smoke.py`` sets them to 0 and reads them to
-#: show that the main path ran through the kernels.
+#: show that the main path ran through the kernels.  ``OPERAND_LAUNCHES``
+#: counts the fused route's calls by the form its x came in (``OPERANDS``):
+#: a convolution's input viewed as the matrix (1x1, stride 1), its
+#: windows, or a matrix in device memory.
 LAUNCHES = 0
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+OPERANDS = ("view", "implicit", "matrix")
+OPERAND_LAUNCHES = dict.fromkeys(OPERANDS, 0)
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -257,23 +313,23 @@ def _library():
             fn = lib.taom_gemm_int8
             fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 +
                            [ctypes.c_float] * 7 + [ctypes.c_int] * 9 +
-                           [ctypes.c_void_p])
+                           [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
             fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
 
 
 def _check_shapes(x, w, noise, cfg):
-    """(M, K, D, C, chunk_adc) of a GEMM; raises on bad shapes."""
-    (xn, xt), (wn, wt) = x, w
-    if xt.dim() != 2 or wt.dim() != 2:
-        raise ValueError(f"{xn} and {wn} must be 2-D, got "
-                         f"{tuple(xt.shape)} and {tuple(wt.shape)}")
-    m, k = xt.shape
-    k2, d = wt.shape
+    """(M, K, D, C, chunk_adc) of a GEMM; raises on bad shapes.  x and w:
+    (name, shape)."""
+    (xn, xs), (wn, ws) = x, w
+    xs, ws = tuple(xs), tuple(ws)
+    if len(xs) != 2 or len(ws) != 2:
+        raise ValueError(f"{xn} and {wn} must be 2-D, got {xs} and {ws}")
+    m, k = xs
+    k2, d = ws
     if k != k2 or m < 1 or k < 1 or d < 1:
-        raise ValueError(f"bad GEMM shapes {xn} {tuple(xt.shape)} @ {wn} "
-                         f"{tuple(wt.shape)}")
+        raise ValueError(f"bad GEMM shapes {xn} {xs} @ {wn} {ws}")
     n_chunks = max(1, -(-k // cfg.dpe_size))
     chunk_adc = cfg.backend in CHUNK_ADC_BACKENDS
     want = (n_chunks, m, d) if chunk_adc else (m, d)
@@ -331,8 +387,8 @@ def taom_gemm_quantized(xq: torch.Tensor, wq: torch.Tensor,
     scales.
     """
     global LAUNCHES
-    m, k, d, n_chunks, chunk_adc = _check_shapes(("xq", xq), ("wq", wq),
-                                                 noise, cfg)
+    m, k, d, n_chunks, chunk_adc = _check_shapes(
+        ("xq", xq.shape), ("wq", wq.shape), noise, cfg)
     if xq.device.type == "cpu":
         from repro_torch.kernels import ref
         return ref.taom_gemm_reference(xq, wq, noise, cfg, adc_fs)
@@ -358,17 +414,28 @@ def taom_gemm_quantized(xq: torch.Tensor, wq: torch.Tensor,
 def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
                     noise: Optional[torch.Tensor], cfg: PhotonicConfig,
                     adc_fs: float, *, block_m: int = 128,
-                    block_d: int = 128,
+                    block_d: int = 128, windows: Optional[tuple] = None,
+                    operand: str = "matrix",
                     _plan: Optional[dict] = None) -> torch.Tensor:
     """The fused route (``"int8"`` or ``"s8x2"``, ``taom_route``): quantize
     -> chunked photonic GEMM -> rescale, as ``ref.photonic_gemm_reference``
     computes it.
 
     x: (M, K) float32 or bfloat16; w: (K, D) float32 or bfloat16; both
-    contiguous.  noise as in ``taom_gemm_quantized``.  block_m/block_d: a
-    plan's tile (see ``kernel_tile``).  ``_plan``: an ``int8_plan`` of
-    this GEMM to launch instead of the default one (tests and measurements
-    force ``x_once`` or ``small`` with it).  Returns (M, D) in x's dtype.
+    contiguous.  ``windows``: x is instead a convolution's NHWC input (N,
+    H, W, C), on the card, and the GEMM's x is the im2col matrix of its
+    windows, ``(kh, kw, stride, pad top, pad left, OH, OW)`` (window (oy,
+    ox)'s position (i, j) reads row oy * stride + i - top and column ox *
+    stride + j - left, zero outside the image; M = N OH OW, K = kh kw C in
+    window-position-major, channel-minor order), which the kernels read
+    without writing it (``window_plan``; it raises where that plan is
+    None).  ``operand``: how the caller's 2-D x came to be, ``"view"`` or
+    ``"matrix"``, counted in ``OPERAND_LAUNCHES`` (``windows`` counts as
+    ``"implicit"``).  noise as in ``taom_gemm_quantized``.
+    block_m/block_d: a plan's tile (see ``kernel_tile``).  ``_plan``: an
+    ``int8_plan`` of this GEMM to launch instead of the default one
+    (tests and measurements force ``x_once`` or ``small`` with it).
+    Returns (M, D) in x's dtype.
     """
     global LAUNCHES
     route = taom_route(cfg)
@@ -377,16 +444,47 @@ def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
                          f"{INT8_QMAX}, one s8 plane), or 8 bits with "
                          f"dpe_size * qmax^2 < 2^24 (two planes); got "
                          f"bits={cfg.bits}, dpe_size={cfg.dpe_size}")
-    m, k, d, n_chunks, chunk_adc = _check_shapes(("x", x), ("w", w), noise,
-                                                 cfg)
+    if operand not in OPERANDS:
+        raise ValueError(f"operand must be one of {OPERANDS}, got "
+                         f"{operand!r}")
+    x_shape = tuple(x.shape)
+    if windows is not None:
+        if x.dim() != 4 or len(windows) != 7:
+            raise ValueError(f"windows take an (N, H, W, C) x and (kh, kw, "
+                             f"stride, top, left, OH, OW), got "
+                             f"{x_shape} and {windows}")
+        kh, kw, _, _, _, oh, ow = windows
+        x_shape = (x.shape[0] * oh * ow, kh * kw * x.shape[3])
+        operand = "implicit"
+    m, k, d, n_chunks, chunk_adc = _check_shapes(("x", x_shape),
+                                                 ("w", w.shape), noise, cfg)
     if x.device.type == "cpu":
+        if windows is not None:
+            raise ValueError("the kernels read windows on the card; on the "
+                             "CPU pass the im2col matrix")
         from repro_torch.kernels import ref
         return ref.photonic_gemm_reference(x, w, noise, cfg, adc_fs)
     kinds = (torch.float32, torch.bfloat16)
     _check_cuda((("x", x, kinds), ("w", w, kinds),
                  ("noise", noise, (torch.float32,))))
     planes = 1 if route == "int8" else 2
-    plan = _plan or int8_plan(m, k, d, cfg.dpe_size, block_d, planes=planes)
+    conv = None
+    if windows is not None:
+        plan = _plan or window_plan(tuple(x.shape), windows, d, cfg.dpe_size,
+                                    block_d, planes)
+        if plan is None:
+            raise ValueError(f"the fused route cannot read windows {windows} "
+                             f"of {tuple(x.shape)} at dpe_size "
+                             f"{cfg.dpe_size}: pass the im2col matrix")
+        images, h, wd, c = x.shape
+        kh, kw, stride, top, left, oh, ow = windows
+        conv = (ctypes.c_int * 19)(
+            images, h, wd, c, kh, kw, stride, top, left, oh, ow,
+            *covered_axis(h, kh, stride, top, oh),
+            *covered_axis(wd, kw, stride, left, ow))
+    else:
+        plan = _plan or int8_plan(m, k, d, cfg.dpe_size, block_d,
+                                  planes=planes)
     if plan["planes"] != planes:
         raise ValueError(f"the {route} route takes {planes} s8 plane(s), "
                          f"the plan has {plan['planes']}")
@@ -406,10 +504,13 @@ def taom_gemm_fused(x: torch.Tensor, w: torch.Tensor,
         int(chunk_adc), coef, inv_step, step, float(hi), qmax, 1.0 / qmax,
         QUANT_EPS, plan["width"], plan["height"], plan["slot"],
         plan["x_blocks"], plan["w_bytes"], int(x.data_ptr() % 16 == 0),
-        plan["planes"], int(plan["x_once"]), int(plan["small"]), stream)
+        plan["planes"], int(plan["x_once"]), int(plan["small"]), conv,
+        stream)
     if err != 0:
         raise RuntimeError(f"taom_gemm_int8 launch failed: CUDA error {err} "
-                           f"(M={m}, K={k}, D={d}, plan {plan})")
+                           f"(M={m}, K={k}, D={d}, plan {plan}, windows "
+                           f"{windows})")
     LAUNCHES += 1
     ROUTE_LAUNCHES[route] += 1
+    OPERAND_LAUNCHES[operand] += 1
     return out

@@ -9,7 +9,9 @@ accelerator tile's post-GEMM units (Fig. 10).  The IR (``OpNode``,
 as it is, so both packages plan the same GEMMs; the walkers run on torch
 tensors in the reference's NHWC layout:
 
-  * ``graph_forward`` — the executor's walk (each GEMM through a callback);
+  * ``graph_forward`` — the executor's walk (each GEMM through a callback,
+    a conv's operand handed over as a ``ConvOperand``: the NHWC input and
+    the windows' geometry, whose ``matrix()`` is the im2col matrix);
   * ``graph_apply`` — the same walk with a plain matmul;
   * ``direct_forward`` — a reference that does not lower to GEMMs (torch
     convolutions), pinning the lowering itself.
@@ -410,10 +412,69 @@ def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
     n, h, w, c = x.shape
     oh = conv_out_dim(h, kh, stride, padding)
     ow = conv_out_dim(w, kw, stride, padding)
+    if kh == kw == stride == 1:
+        # One window with no padding: the patches are x itself (a view of
+        # a contiguous x).
+        return x.reshape(n, h * w, c), (oh, ow)
     if padding == "same":
         x = _pad_hw(x, kh, kw, stride)
     cols = torch.cat(_windows(x, kh, kw, stride, oh, ow), dim=-1)
     return cols.reshape(n, oh * ow, kh * kw * c), (oh, ow)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ConvOperand:
+    """A conv or depthwise node's GEMM operand before im2col: the NHWC
+    input and the windows' geometry.  ``matrix()`` is ``im2col``'s
+    (N*OH*OW, kh*kw*C) matrix; the TAOM kernels' fused route reads the
+    windows from ``x`` instead (``kernels.ops.photonic_matmul``)."""
+    x: torch.Tensor        # (N, H, W, C)
+    kh: int
+    kw: int
+    stride: int
+    padding: str
+
+    @property
+    def out_hw(self) -> Tuple[int, int]:
+        return (conv_out_dim(self.x.shape[1], self.kh, self.stride,
+                             self.padding),
+                conv_out_dim(self.x.shape[2], self.kw, self.stride,
+                             self.padding))
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """The (M, K) of the GEMM."""
+        oh, ow = self.out_hw
+        return (self.x.shape[0] * oh * ow,
+                self.kh * self.kw * self.x.shape[3])
+
+    @property
+    def kind(self) -> str:
+        """'view' where the matrix is x itself (1x1, stride 1), else
+        'implicit'."""
+        return "view" if self.kh == self.kw == self.stride == 1 \
+            else "implicit"
+
+    @property
+    def windows(self) -> Tuple[int, ...]:
+        """(kh, kw, stride, pad top, pad left, OH, OW): window (oy, ox)'s
+        position (i, j) reads x[:, oy*stride + i - top, ox*stride + j -
+        left], zero outside the image."""
+        top = left = 0
+        if self.padding == "same":
+            top = _same_pads(self.x.shape[1], self.kh, self.stride)[0]
+            left = _same_pads(self.x.shape[2], self.kw, self.stride)[0]
+        return (self.kh, self.kw, self.stride, top, left, *self.out_hw)
+
+    def matrix(self) -> torch.Tensor:
+        cols, _ = im2col(self.x, self.kh, self.kw, self.stride,
+                         self.padding)
+        return cols.reshape(-1, cols.shape[-1])
+
+
+def gemm_matrix(a) -> torch.Tensor:
+    """A GEMM operand of ``graph_steps`` as its 2-D matrix."""
+    return a.matrix() if isinstance(a, ConvOperand) else a
 
 
 def depthwise_block_diag(w: torch.Tensor) -> torch.Tensor:
@@ -570,13 +631,15 @@ def _apply_glue(node: OpNode, a: torch.Tensor,
 
 
 def graph_steps(params: dict, x: torch.Tensor, graph: OpGraph
-                ) -> Generator[Tuple[torch.Tensor, torch.Tensor, int, OpNode],
-                               torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Generator[tuple, torch.Tensor, Dict[str, torch.Tensor]]:
     """``graph_forward`` a GEMM at a time: a generator that yields
-    ``(cols2d, weight, gemm_index, node)`` at every GEMM node, takes the
+    ``(operand, weight, gemm_index, node)`` at every GEMM node, takes the
     GEMM's output back by ``send`` and returns every node's output by
-    name.  The data-parallel executor steps one per shard, so that a
-    GEMM can see every shard's operand before any of them runs."""
+    name.  The operand is a ``ConvOperand`` at a conv or depthwise node
+    (``gemm_matrix`` makes it the im2col matrix) and the flattened 2-D
+    input at an fc node.  The data-parallel executor steps one per shard,
+    so that a GEMM can see every shard's operand before any of them
+    runs."""
     n = x.shape[0]
     vals: Dict[str, torch.Tensor] = {}
     gi = 0
@@ -589,10 +652,10 @@ def graph_steps(params: dict, x: torch.Tensor, graph: OpGraph
             wgt = params[node.name]
             w2d = (depthwise_block_diag(wgt)
                    if node.op == "depthwise_conv" else wgt)
-            cols, (oh, ow) = im2col(a, node.kh, node.kw, node.stride,
-                                    node.padding)
-            out = yield cols.reshape(-1, cols.shape[-1]), w2d, gi, node
-            y = out.reshape(n, oh, ow, w2d.shape[-1])
+            operand = ConvOperand(a, node.kh, node.kw, node.stride,
+                                  node.padding)
+            out = yield operand, w2d, gi, node
+            y = out.reshape(n, *operand.out_hw, w2d.shape[-1])
             gi += 1
         elif node.op == "fc":
             y = yield a.reshape(n, -1), params[node.name], gi, node
@@ -611,9 +674,11 @@ def graph_forward(params: dict, x: torch.Tensor, graph: OpGraph,
                   ) -> Dict[str, torch.Tensor]:
     """Walk the graph; returns every node's output by name.
 
-    ``mm(cols2d, weight, gemm_index, node)`` runs one lowered GEMM — the
-    executor plugs the photonic kernel + per-layer plan/noise generator in
-    here; ``graph_apply`` plugs a plain (or photonic-reference) matmul.
+    ``mm(operand, weight, gemm_index, node)`` runs one lowered GEMM
+    (``graph_steps`` says what the operand is) — the executor plugs the
+    photonic kernel + per-layer plan/noise generator in here;
+    ``graph_apply`` plugs a plain (or photonic-reference) matmul on the
+    im2col matrix.
     """
     steps = graph_steps(params, x, graph)
     try:
@@ -630,7 +695,7 @@ def graph_apply(params: dict, x: torch.Tensor, graph: OpGraph,
     (default exact; pass the photonic simulation for noisy numerics)."""
     base = matmul or (lambda a, w: a @ w)
     vals = graph_forward(params, x, graph,
-                         lambda a, w, i, node: base(a, w))
+                         lambda a, w, i, node: base(gemm_matrix(a), w))
     return vals[graph.output.name]
 
 

@@ -308,6 +308,161 @@ def test_s8x2_route_takes_views_off_a_16_byte_boundary_on_card(
                      128, **plan)
 
 
+# Implicit im2col: the fused route reading a convolution's windows from
+# its NHWC input (taom_gemm_fused's windows, photonic_matmul on a
+# ConvOperand) against the same route on the materialized im2col matrix,
+# x quantized once or as planned, one and two s8 planes, float32 and
+# bfloat16 x; and the ResNet-50 benchmark graph served through the
+# compiled forward against the plain reference.
+CONV_GEOMETRY = [(kk, stride, padding, hw, c) for kk in (1, 3, 7)
+                 for stride in (1, 2) for padding in ("same", "valid")
+                 for hw in ((7, 9), (8, 10), (9, 8)) for c in (3, 8)]
+
+
+def _windows_equal(cuda, op, w, cfg, noise=None, block_d=128):
+    """photonic_matmul on ``op`` == the fused route on its matrix, as
+    planned and with x quantized once == the plain version; and the
+    wrapper on the windows where ``window_plan`` takes them."""
+    mat = op.matrix().contiguous()
+    (m, k), d = mat.shape, w.shape[1]
+    fs = taom_gemm.calibrated_adc_fs(k, cfg)
+    planes = 1 if taom_gemm.taom_route(cfg) == "int8" else 2
+    want = taom_gemm.taom_gemm_fused(mat, w, noise, cfg, fs, block_d=block_d)
+    once = taom_gemm.int8_plan(m, k, d, cfg.dpe_size, block_d, planes=planes,
+                               x_once=True)
+    forced = taom_gemm.taom_gemm_fused(mat, w, noise, cfg, fs,
+                                       block_d=block_d, _plan=once)
+    plain = ref.photonic_gemm_reference(mat, w, noise, cfg, fs)
+    plan = taom_gemm.window_plan(tuple(op.x.shape), op.windows, d,
+                                 cfg.dpe_size, block_d, planes)
+    kind = "view" if op.kind == "view" else \
+        "implicit" if plan is not None else "matrix"
+    before = dict(taom_gemm.OPERAND_LAUNCHES)
+    got = ops.photonic_matmul(op, w, cfg, impl="kernel", adc_fs=fs,
+                              block_d=block_d,
+                              noise=None if noise is None else
+                              (noise.movedim(0, -2) if noise.dim() == 3
+                               else noise))
+    assert taom_gemm.OPERAND_LAUNCHES[kind] == before[kind] + 1, kind
+    direct = None
+    if plan is not None:
+        assert plan["x_once"] and not plan["small"]
+        direct = taom_gemm.taom_gemm_fused(op.x, w, noise, cfg, fs,
+                                           block_d=block_d,
+                                           windows=op.windows)
+    torch.cuda.synchronize()
+    assert torch.equal(want, plain), (want.float() - plain.float()).abs().max()
+    assert torch.equal(forced, want)
+    assert got.shape == want.shape and torch.equal(got, want), kind
+    if direct is not None:
+        assert torch.equal(direct, want)
+    return kind
+
+
+@pytest.mark.parametrize("kk,stride,padding,hw,c", CONV_GEOMETRY)
+@pytest.mark.parametrize("bits", [6, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_implicit_operand_equals_the_matrix_on_card(cuda, kk, stride,
+                                                    padding, hw, c, bits,
+                                                    dtype):
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=bits, dpe_size=83,
+                         noise_enabled=False)
+    gen = torch.Generator(device=cuda).manual_seed(kk + 7 * stride + c)
+    x = torch.randn(3, *hw, c, generator=gen, device=cuda).to(dtype)
+    w = torch.randn(kk * kk * c, 24, generator=gen, device=cuda)
+    op = lw.ConvOperand(x, kk, kk, stride, padding)
+    kind = _windows_equal(cuda, op, w, cfg)
+    # Below K = 72 at N = 83 the staged layout is more than twice K.
+    assert kind == ("view" if kk == stride == 1 else
+                    "implicit" if kk * kk * c >= 72 else "matrix")
+
+
+@pytest.mark.parametrize("n,hw,c,kk,stride,d", [
+    (2, 224, 3, 7, 2, 64),        # ResNet-50's stem
+    (2, 56, 64, 3, 1, 64),        # a stage-1 3x3
+    (2, 56, 256, 1, 2, 128),      # a stage's strided 1x1
+    (2, 28, 144, 3, 2, 144),      # a MobileNetV2 strided depthwise
+    (5, 13, 40, 3, 2, 40)])       # odd extents, C not a whole f32 vector
+@pytest.mark.parametrize("backend", [Backend.HEANA, Backend.AMW])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_implicit_operand_at_benchmark_shapes_on_card(cuda, n, hw, c, kk,
+                                                      stride, d, backend,
+                                                      dtype):
+    for bits in (4, 8):
+        cfg = PhotonicConfig(backend=backend, bits=bits, dpe_size=83)
+        gen = torch.Generator(device=cuda).manual_seed(hw + c + bits)
+        x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(dtype)
+        w = torch.randn(kk * kk * c, d, generator=gen, device=cuda)
+        op = lw.ConvOperand(x, kk, kk, stride, "same")
+        m, k = op.shape
+        noise = _fused_noise(cuda, cfg, m, k, d, bits)
+        for block_d in (16, 128):
+            assert _windows_equal(cuda, op, w, cfg, noise,
+                                  block_d) == "implicit"
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_implicit_operand_off_a_16_byte_boundary_on_card(cuda, offset):
+    # An input that starts inside a 16-byte vector (the |max| then reads
+    # it an element at a time) gives what an aligned copy gives.
+    cfg = PhotonicConfig(backend=Backend.HEANA, bits=4, dpe_size=83,
+                         noise_enabled=False)
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    shape = (2, 28, 28, 64)
+    buf = torch.empty(math.prod(shape) + offset, device=cuda)
+    x = buf[offset:].view(shape).copy_(
+        torch.randn(shape, generator=gen, device=cuda))
+    assert x.data_ptr() % 16
+    for kk, stride in ((1, 2), (3, 2), (3, 1)):
+        wk = torch.randn(kk * kk * 64, 32, generator=gen, device=cuda)
+        op = lw.ConvOperand(x, kk, kk, stride, "same")
+        assert _windows_equal(cuda, op, wk, cfg) == "implicit"
+        aligned = lw.ConvOperand(x.clone(), kk, kk, stride, "same")
+        assert torch.equal(
+            ops.photonic_matmul(op, wk, cfg, impl="kernel"),
+            ops.photonic_matmul(aligned, wk, cfg, impl="kernel"))
+
+
+def _bench_graph(name: str) -> lw.OpGraph:
+    """A benchmark configuration's node records as an op graph."""
+    import json
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "perfbench", "configs", f"{name}.json")
+    with open(path) as f:
+        records = json.load(f)["nodes"]
+    return lw.OpGraph(tuple(lw.OpNode(
+        r["name"], r["op"], tuple(r.get("inputs", ())),
+        cout=r.get("cout", 0), kh=r.get("kernel", 3), kw=r.get("kernel", 3),
+        stride=r.get("stride", 1), padding=r.get("padding", "same"),
+        relu=r.get("relu", False), pool=r.get("pool", "max"),
+        pool_size=r.get("size", 2), pool_stride=r.get("stride", 2))
+        for r in records))
+
+
+def test_resnet50_compiled_forward_equals_the_reference_on_card(cuda):
+    from repro_torch.core import hw
+    from repro_torch.exec import reference_forward
+    graph = _bench_graph("resnet50-heana4")
+    op = hw.OperatingPoint.equal_area("heana", Dataflow.OS, 1.0)
+    cfg = op.kernel_config(noise_enabled=False)
+    params = lw.init_params(graph, torch.Generator().manual_seed(0),
+                            in_hw=224, device=cuda)
+    plan = plan_for_network(params, op, batch=2, in_hw=224, lowering=graph,
+                            cache=PlanCache())
+    x = torch.randn(2, 224, 224, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    counts = dict(taom_gemm.OPERAND_LAUNCHES)
+    got = execute_cnn(params, x, plan, cfg, lowering=graph, device=cuda)
+    launched = {k: taom_gemm.OPERAND_LAUNCHES[k] - counts[k]
+                for k in counts}
+    # The capture runs the body twice (a warm-up on a side stream first).
+    assert launched == {"view": 60, "implicit": 46, "matrix": 2}, launched
+    again = execute_cnn(params, x, plan, cfg, lowering=graph, device=cuda)
+    want = reference_forward(params, x, cfg, lowering=graph, device=cuda)
+    assert torch.equal(got.logits, want)
+    assert torch.equal(again.logits, want)
+
+
 def test_float32_body_still_takes_9_bits_and_n_259_on_card(cuda):
     x = torch.randn(3, 70, 300, device=cuda)
     w = torch.randn(300, 40, device=cuda)
