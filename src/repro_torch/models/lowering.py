@@ -51,6 +51,13 @@ OPS = ("input",) + GEMM_OPS + GLUE_OPS
 POOL_KINDS = ("max", "avg", "global")
 PADDINGS = ("same", "valid")
 
+#: Glue nodes that the graph walk (``graph_steps``) applied, by kind; the
+#: global mean counts under ``"pool"``.  Like ``taom_gemm.OPERAND_LAUNCHES``
+#: it counts walks, not forwards: a CUDA graph captures the walk and a
+#: replay runs none of its Python, so a graphed forward counts at its
+#: capture and adds nothing when it is replayed.
+GLUE_CALLS = dict.fromkeys(GLUE_OPS, 0)
+
 
 # ---------------------------------------------------------------------------
 # Analytic GEMM record (the scheduler/perf-model currency)
@@ -662,6 +669,7 @@ def graph_steps(params: dict, x: torch.Tensor, graph: OpGraph
             gi += 1
         else:
             y = _apply_glue(node, a, vals)
+            GLUE_CALLS[node.op] += 1
         if node.relu:
             y = torch.relu(y)
         vals[node.name] = y

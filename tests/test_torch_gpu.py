@@ -463,6 +463,36 @@ def test_resnet50_compiled_forward_equals_the_reference_on_card(cuda):
     assert torch.equal(again.logits, want)
 
 
+def test_googlenet_compiled_forward_equals_the_reference_on_card(cuda):
+    # GoogLeNet at 224: 5x5 windows and D down to 16 on the fused route;
+    # no convolution falls back to a materialized im2col matrix.
+    from repro_torch.core import hw
+    from repro_torch.exec import reference_forward
+    graph = _bench_graph("googlenet-heana4")
+    op = hw.OperatingPoint.equal_area("heana", Dataflow.OS, 1.0)
+    cfg = op.kernel_config(noise_enabled=False)
+    params = lw.init_params(graph, torch.Generator().manual_seed(0),
+                            in_hw=224, device=cuda)
+    plan = plan_for_network(params, op, batch=2, in_hw=224, lowering=graph,
+                            cache=PlanCache())
+    x = torch.randn(2, 224, 224, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    counts = dict(taom_gemm.OPERAND_LAUNCHES)
+    glue = dict(lw.GLUE_CALLS)
+    got = execute_cnn(params, x, plan, cfg, lowering=graph, device=cuda)
+    launched = {k: taom_gemm.OPERAND_LAUNCHES[k] - counts[k]
+                for k in counts}
+    # The capture runs the body twice (a warm-up on a side stream first).
+    assert launched == {"view": 74, "implicit": 40, "matrix": 2}, launched
+    assert {k: lw.GLUE_CALLS[k] - glue[k] for k in ("pool", "concat")} == \
+        {"pool": 28, "concat": 18}
+    again = execute_cnn(params, x, plan, cfg, lowering=graph, device=cuda)
+    assert lw.GLUE_CALLS["concat"] - glue["concat"] == 18   # a replay
+    want = reference_forward(params, x, cfg, lowering=graph, device=cuda)
+    assert torch.equal(got.logits, want)
+    assert torch.equal(again.logits, want)
+
+
 def test_float32_body_still_takes_9_bits_and_n_259_on_card(cuda):
     x = torch.randn(3, 70, 300, device=cuda)
     w = torch.randn(300, 40, device=cuda)

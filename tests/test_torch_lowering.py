@@ -199,7 +199,8 @@ def _bench_graph(name: str) -> tlw.OpGraph:
 
 
 @pytest.mark.parametrize("name,view,implicit,matrix", [
-    ("resnet50-heana4", 30, 23, 1), ("mobilenetv2-heana4", 34, 18, 1)])
+    ("resnet50-heana4", 30, 23, 1), ("mobilenetv2-heana4", 34, 18, 1),
+    ("googlenet-heana4", 37, 20, 1)])
 def test_operand_kinds_over_the_benchmark_graphs(name, view, implicit,
                                                  matrix):
     """The walk hands each GEMM a view (1x1, stride 1), an implicit
