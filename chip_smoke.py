@@ -2317,10 +2317,28 @@ def recorded_calls():
             setattr(mod, fn_name, real)
 
 
+def window_matrix(x, windows):
+    """The im2col matrix (N OH OW, kh kw C) of ``taom_gemm_fused``'s
+    ``windows`` (kh, kw, stride, pad top, pad left, OH, OW) of an NHWC x:
+    window (oy, ox)'s position (i, j) reads x[:, oy stride + i - top,
+    ox stride + j - left], zero outside the image."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import lowering as lw
+    kh, kw, stride, top, left, oh, ow = windows
+    n, h, w, c = x.shape
+    bottom = max(0, (oh - 1) * stride + kh - top - h)
+    right = max(0, (ow - 1) * stride + kw - left - w)
+    padded = F.pad(x, (0, 0, left, right, top, bottom))
+    cols = torch.cat(lw._windows(padded, kh, kw, stride, oh, ow), dim=-1)
+    return cols.reshape(n * oh * ow, kh * kw * c)
+
+
 def hold_calls(label: str, calls: dict, captured: set) -> dict:
     """Each recorded kernel call's output against its plain version on the
     same inputs: the TAOM routes bit-equal (``ref.taom_gemm_reference``,
-    ``ref.photonic_gemm_reference``), the SSD scan within ``SSD_TOL``
+    ``ref.photonic_gemm_reference``, on ``window_matrix`` where the
+    kernels read a conv's windows), the SSD scan within ``SSD_TOL``
     (``ops._ssd_chunked``), flash within ``FLASH_TOL`` in float32 and one
     bf16 ulp of each query row's max|plain| in bf16
     (``ops._flash_blocked``, ``bf16_row_err``).  Every signature seen
@@ -2336,7 +2354,9 @@ def hold_calls(label: str, calls: dict, captured: set) -> dict:
             want = ref.taom_gemm_reference(a["xq"], a["wq"], a["noise"],
                                            a["cfg"], a["adc_fs"])
         elif name == "taom_gemm_fused":
-            want = ref.photonic_gemm_reference(a["x"], a["w"], a["noise"],
+            x = (a["x"] if a["windows"] is None
+                 else window_matrix(a["x"], a["windows"]))
+            want = ref.photonic_gemm_reference(x, a["w"], a["noise"],
                                                a["cfg"], a["adc_fs"])
         elif name == "ssd_scan_chunked":
             want = ops._ssd_chunked(a["x"], a["dt"], a["a"], a["b"], a["c"],
@@ -3727,6 +3747,15 @@ def main() -> int:
     eager32 = lambda: execute_cnn(                     # noqa: E731
         params, x32, engine.plans[BATCH], main_cfg, lowering=model.graph,
         device=dev, compiled=False)
+    # TAOM kernels a request: absmax and the GEMM for every GEMM, and the
+    # quantize of x for every conv whose windows the kernels read
+    # (``taom_gemm.window_plan`` always quantizes x once), counted by the
+    # wrapper over one eager forward.
+    implicit = taom_gemm.OPERAND_LAUNCHES["implicit"]
+    eager32()
+    implicit = taom_gemm.OPERAND_LAUNCHES["implicit"] - implicit
+    taom_want = {"taom_gemm_absmax": n_gemms, "taom_gemm_int8": n_gemms,
+                 "taom_gemm_quant_x": implicit, "taom_gemm_small": 0}
     cnn_rows = {}
     for name, fn in (("graphed", lambda: engine.infer(x32)),
                      ("eager", eager32)):
@@ -3739,12 +3768,14 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / REQUESTS * 1e3
         split = profile(fn, REQUESTS, "taom_gemm", split=taom_gemm.KERNELS,
-                        want={"kernel_launches_per_run": 2 * n_gemms})
+                        want={"split_launches_per_run": taom_want})
         cnn_rows[name] = {"wall_ms": wall_ms, **split}
         log(f"[serving] bucket-32 request, {name}, {REQUESTS} runs: "
             f"{wall_ms:.4f} ms host clock unprofiled; per request under the "
             f"profiler: " + json.dumps(split, sort_keys=True))
-        assert split["kernel_launches_per_run"] == 2 * n_gemms, (name, split)
+        assert split["split_launches_per_run"] == taom_want, (name, split)
+        assert split["kernel_launches_per_run"] == 2 * n_gemms + implicit, (
+            name, split)
     split = cnn_rows["graphed"]
     log(f"[serving] bucket-32: graphed {split['wall_ms']:.4f} ms host clock, "
         f"{split['device_busy_ms_per_run']:.4f} ms device busy, idle "
@@ -3756,9 +3787,12 @@ def main() -> int:
         f"{cnn_rows['eager']['device_idle_share']:.1%}, "
         f"{cnn_rows['eager']['device_kernels_per_run']:g} kernels")
     log(f"[serving] the TAOM route's {split['kernel_launches_per_run']:g} "
-        f"kernels (2 per GEMM) take {split['kernel_ms_per_run']:.5f} ms on "
+        f"kernels (2 per GEMM, and a quantize of x for each of the "
+        f"{implicit} convs read as windows) take "
+        f"{split['kernel_ms_per_run']:.5f} ms on "
         f"the graphed path (profiler; absmax "
-        f"{split['split_ms_per_run']['taom_gemm_absmax']:.5f}, int8 GEMM "
+        f"{split['split_ms_per_run']['taom_gemm_absmax']:.5f}, quantize x "
+        f"{split['split_ms_per_run']['taom_gemm_quant_x']:.5f}, int8 GEMM "
         f"{split['split_ms_per_run']['taom_gemm_int8']:.5f}) vs "
         f"{per_forward['fused_ms']:.5f} ms in phase 2 (CUDA graph replay "
         f"at the same shapes and tiles)")

@@ -5,9 +5,10 @@
     from the reference: plans are equal field for field);
   * executor  — runs each planned GEMM through the TAOM kernel (quantize
     -> kernel -> rescale), batch folded into the GEMM M axis, noise seeds
-    folded per layer; the serving hot path is ``compiled_forward``: the
-    pure forward (``forward_fn``) captured once per input shape in a CUDA
-    graph and replayed (the reference jit-compiles it);
+    folded per layer; ``compiled_forward`` is the pure forward
+    (``forward_fn``) captured once per input shape in a CUDA graph and
+    replayed (the reference jit-compiles it), and the serving hot path,
+    ``compiled_logits``, the same without the per-GEMM fingerprints;
   * serving   — power-of-two batch buckets, zero padding, warmup that
     captures every bucket, a thread-safe micro-batcher, a data-parallel
     path over several device entries (bitwise equal to one device), and
@@ -18,7 +19,8 @@
 from repro_torch.exec.executor import (ExecutionResult, LayerTrace,
                                        clear_compile_cache,
                                        compile_cache_stats, compiled_forward,
-                                       execute_cnn, forward_fn,
+                                       compiled_logits, execute_cnn,
+                                       forward_fn,
                                        lowering_fingerprint,
                                        plan_for_network, reference_forward,
                                        trace_count)
@@ -42,7 +44,8 @@ __all__ = [
     "serving_summary",
     "PlanCache", "GLOBAL_PLAN_CACHE", "fingerprint",
     "ExecutionResult", "LayerTrace", "execute_cnn", "plan_for_network",
-    "reference_forward", "compiled_forward", "forward_fn", "trace_count",
+    "reference_forward", "compiled_forward", "compiled_logits",
+    "forward_fn", "trace_count",
     "compile_cache_stats", "clear_compile_cache", "lowering_fingerprint",
     "plan_summary", "plan_table", "plan_vs_fixed", "execution_summary",
     "graph_summary", "render_report", "save_summary", "throughput_summary",

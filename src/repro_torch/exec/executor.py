@@ -35,6 +35,9 @@ captures it in a CUDA graph:
     (``trace_count`` counts captures), and later calls replay it; the
     graph replays the same kernels the eager body launches, and gives the
     same bits.  On the CPU it runs the eager body and captures nothing;
+  * ``compiled_logits`` is the serving engine's entry: the same walk and
+    GEMMs, captured the same way, returning the logits alone, with no
+    fingerprint reductions in its graph;
   * per-layer numerics fingerprints (mean |activation|) stay on the device
     as one stacked tensor; ``ExecutionResult.traces`` copies them to the
     host only when a caller asks;
@@ -49,7 +52,7 @@ import dataclasses
 import functools
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -204,10 +207,19 @@ def draw_noise(seed: Optional[int], plan: CnnPlan, cfg: PhotonicConfig,
 # ---------------------------------------------------------------------------
 # Counts captures of the forward into a CUDA graph, the counterpart of the
 # reference's jit traces: a warm compiled call replays and leaves it
-# untouched.  Guarded by a lock: concurrent serving threads may capture at
-# once (cold buckets), and ``count += 1`` is not atomic.
+# untouched.  The lock also guards ``FINGERPRINT_CALLS``: concurrent
+# serving threads may capture at once (cold buckets), and ``count += 1``
+# is not atomic.
 _TRACE_COUNT = 0
 _TRACE_LOCK = threading.Lock()
+
+#: Runs of ``forward_fn``'s body, each computing one forward's per-GEMM
+#: fingerprints: +1 an eager call; on the card a cold compiled call adds
+#: 2 (``cuda_graph.capture`` runs the body once eagerly, then captures
+#: it); nothing a replay (a graph runs none of the body's Python).
+#: ``compiled_logits``, the serving engine's entry, computes none, so an
+#: engine's warm-up and requests leave it as it was.
+FINGERPRINT_CALLS = 0
 
 
 def trace_count() -> int:
@@ -216,20 +228,15 @@ def trace_count() -> int:
         return _TRACE_COUNT
 
 
-def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
-               noise: Optional[Sequence[torch.Tensor]] = None, *, lowering,
-               plan: CnnPlan, cfg: PhotonicConfig, impl: str,
-               collect_activations: bool):
-    """Forward: (params, x, noise) -> (logits, fingerprints, acts).
-
-    Walks the lowering's op graph (models.lowering.graph_forward): every
-    GEMM-bearing node runs through the photonic matmul with its
-    LayerPlan's tile and its layer's pre-drawn noise (``draw_noise``;
-    None with noise off); glue nodes are plain torch ops.  Fingerprints
-    are per GEMM node, taken right after its activation, and stay on the
-    device.  No host sync anywhere in the body, so it captures in a CUDA
-    graph as it is.
-    """
+def _walk(params: Dict[str, torch.Tensor], x: torch.Tensor,
+          noise: Optional[Sequence[torch.Tensor]], lowering, plan: CnnPlan,
+          cfg: PhotonicConfig, impl: str
+          ) -> Tuple[lw.OpGraph, Dict[str, torch.Tensor]]:
+    """The graph walk (models.lowering.graph_forward) with the photonic
+    GEMMs: every GEMM-bearing node runs through the photonic matmul with
+    its LayerPlan's tile and its layer's pre-drawn noise (``draw_noise``;
+    None with noise off); glue nodes are plain torch ops.  Returns the
+    graph and every node's value."""
     graph = cnn_mod.as_graph(lowering, plan=plan)
 
     def mm(a, w2d: torch.Tensor, gi: int, node: lw.OpNode) -> torch.Tensor:
@@ -237,13 +244,41 @@ def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
                              None if noise is None else noise[gi],
                              plan.layers[gi], impl)
 
-    vals = lw.graph_forward(params, x, graph, mm)
+    return graph, lw.graph_forward(params, x, graph, mm)
+
+
+def forward_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               noise: Optional[Sequence[torch.Tensor]] = None, *, lowering,
+               plan: CnnPlan, cfg: PhotonicConfig, impl: str,
+               collect_activations: bool):
+    """Forward: (params, x, noise) -> (logits, fingerprints, acts).
+
+    The photonic graph walk (``_walk``), then a fingerprint per GEMM
+    node, its mean |activation|, kept on the device as one stacked
+    tensor (``FINGERPRINT_CALLS`` counts the forwards that computed
+    them).  No host sync anywhere in the body, so it captures in a CUDA
+    graph as it is.
+    """
+    global FINGERPRINT_CALLS
+    graph, vals = _walk(params, x, noise, lowering, plan, cfg, impl)
     gemm_outs = [vals[n.name] for n in graph.gemm_nodes]
     # mean |activation| as sum * (1/size), the reference's formulation.
     fingerprints = torch.stack([v.abs().sum() * (1.0 / v.numel())
                                 for v in gemm_outs])
+    with _TRACE_LOCK:
+        FINGERPRINT_CALLS += 1
     acts = tuple(gemm_outs) if collect_activations else ()
     return vals[graph.output.name], fingerprints, acts
+
+
+def _logits_fn(params: Dict[str, torch.Tensor], x: torch.Tensor,
+               noise: Optional[Sequence[torch.Tensor]] = None, *, lowering,
+               plan: CnnPlan, cfg: PhotonicConfig,
+               impl: str) -> torch.Tensor:
+    """Forward: (params, x, noise) -> logits; ``forward_fn``'s walk and
+    GEMMs in the same order, without the fingerprints."""
+    graph, vals = _walk(params, x, noise, lowering, plan, cfg, impl)
+    return vals[graph.output.name]
 
 
 def _pin_row(cols: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
@@ -459,9 +494,10 @@ class _GraphTable:
 
 
 class CompiledForward:
-    """``fn(params, x, seed=None) -> (logits, fingerprints, acts)`` for
-    one (lowering, plan, cfg, impl, collect_activations); built by
-    ``compiled_forward``.
+    """``fn(params, x, seed=None)`` -> what its body returns, for one
+    (lowering, plan, cfg, impl) and body: ``forward_fn``'s (logits,
+    fingerprints, acts), built by ``compiled_forward``, or the logits
+    alone, built by ``compiled_logits``.
 
     On a CUDA device the first call for an input captures the forward
     into a CUDA graph, keyed by x's shape, dtype and device and by the
@@ -479,13 +515,12 @@ class CompiledForward:
     On the CPU it runs the eager body and captures nothing.
     """
 
-    def __init__(self, lowering, plan: CnnPlan, cfg: PhotonicConfig,
-                 impl: str, collect_activations: bool) -> None:
+    def __init__(self, body: Callable, plan: CnnPlan,
+                 cfg: PhotonicConfig) -> None:
+        # body(params, x, noise): forward_fn or _logits_fn, all else bound.
         self.plan = plan
         self.cfg = cfg
-        self._body = functools.partial(
-            forward_fn, lowering=lowering, plan=plan, cfg=cfg, impl=impl,
-            collect_activations=collect_activations)
+        self._body = body
         self._graphs = _GraphTable()
 
     def __call__(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -508,8 +543,8 @@ class CompiledForward:
 
 
 # Compiled-wrapper memo: (lowering fp, per-layer plan cache keys, cfg,
-# impl, collect) -> CompiledForward, the reference's key; the sharded
-# wrappers share it under keys of their own.  LRU-bounded as the
+# impl, collect) -> CompiledForward, the reference's key; the logits-only
+# and sharded wrappers share it under keys of their own.  LRU-bounded as the
 # reference's is (evicting a wrapper frees its graphs and their pools).
 # All access goes through _FORWARD_LOCK: the serving front-end builds
 # wrappers from concurrent request threads.
@@ -547,8 +582,25 @@ def compiled_forward(plan: CnnPlan, cfg: PhotonicConfig,
     memo_key = (lowering_fingerprint(lowering),
                 tuple(p.cache_key for p in plan.layers), cfg, impl,
                 collect_activations)
-    return _memoized(memo_key, lambda: CompiledForward(
-        lowering, plan, cfg, impl, collect_activations))
+    return _memoized(memo_key, lambda: CompiledForward(functools.partial(
+        forward_fn, lowering=lowering, plan=plan, cfg=cfg, impl=impl,
+        collect_activations=collect_activations), plan, cfg))
+
+
+def compiled_logits(plan: CnnPlan, cfg: PhotonicConfig,
+                    lowering: Optional[Lowering] = None,
+                    impl: str = "auto") -> CompiledForward:
+    """The serving engine's entry: ``fn(params, x, seed=None) -> logits``,
+    a ``CompiledForward`` over ``forward_fn``'s walk without the
+    fingerprints, so its CUDA graphs hold no per-GEMM reduction.
+    Memoized as ``compiled_forward`` is, under keys of its own: it never
+    shares a wrapper with ``compiled_forward``."""
+    lowering = _norm_lowering(lowering)
+    memo_key = ("logits", lowering_fingerprint(lowering),
+                tuple(p.cache_key for p in plan.layers), cfg, impl)
+    return _memoized(memo_key, lambda: CompiledForward(functools.partial(
+        _logits_fn, lowering=lowering, plan=plan, cfg=cfg, impl=impl),
+        plan, cfg))
 
 
 class ShardedForward:

@@ -12,10 +12,11 @@
     own batch with its own quantize scale.);
 
   * **warmup()** — captures every bucket's forward in a CUDA graph with a
-    dummy batch (``executor.compiled_forward``, one wrapper per bucket
-    built up front), so no request pays a capture or a kernel build
-    (``stats()["retraces_since_warmup"]`` stays 0); on the CPU it runs
-    every bucket once;
+    dummy batch (``executor.compiled_logits``, one wrapper per bucket
+    built up front: the walk and its logits, none of ``execute_cnn``'s
+    per-GEMM fingerprints, which no request reads), so no request pays a
+    capture or a kernel build (``stats()["retraces_since_warmup"]``
+    stays 0); on the CPU it runs every bucket once;
 
   * a thread-safe **micro-batcher** — coalesces single-image requests
     from a queue into bucketed batches under a max-delay knob, resolving
@@ -172,8 +173,8 @@ class ServingEngine:
         hw.check_kernel_plan_coherence(cfg, self.plans[self.buckets[0]])
         # One compiled wrapper per bucket, built up front; the graphs are
         # captured at warmup() or first call.
-        self._fns = {b: ex.compiled_forward(self.plans[b], cfg,
-                                            self._lowering, impl)
+        self._fns = {b: ex.compiled_logits(self.plans[b], cfg,
+                                           self._lowering, impl)
                      for b in self.buckets}
 
         if devices is None:
@@ -242,7 +243,7 @@ class ServingEngine:
             with trace.span("serving.gather"):
                 logits = torch.cat([o.to(self.device) for o in outs])
         else:
-            logits, _, _ = self._fns[bucket](self._params, xb, seed)
+            logits = self._fns[bucket](self._params, xb, seed)
         if self._warm:
             # Engine-local retrace accounting: only captures across THIS
             # engine's calls count, not another engine's warmup.

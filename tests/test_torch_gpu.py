@@ -1048,6 +1048,64 @@ def test_zero_retraces_after_warmup_on_card(cuda):
     assert engine.stats()["retraces_since_warmup"] == 0
 
 
+def test_engine_graph_holds_no_fingerprint_reductions_on_card(cuda):
+    """One replay of an engine bucket's graph beside one replay of
+    ``compiled_forward``'s graph for the same plan: the engine's launches
+    no ``AbsFunctor`` kernel and at least two device operations a GEMM
+    fewer, and its logits are bit-equal.  Sessions are read as
+    ``chip_smoke.profile`` reads them, since the profiler can drop a
+    record: each graph's is the first that shows all its TAOM kernels
+    (absmax and the GEMM for every GEMM, the quantize of x for every conv
+    read as windows) and its abs kernels (one a GEMM, or none).  The
+    engine's warm-up computes no fingerprints; a cold compiled
+    ``execute_cnn``-style call computes them twice, in the capture's warm
+    run and in the capture."""
+    import importlib.util
+    from repro_torch.exec import ServingEngine, compiled_forward, executor
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    model, params, acc, cfg = _resnet_mini(cuda, Backend.HEANA)
+    executor.clear_compile_cache()       # one graph a wrapper below
+    engine = ServingEngine(params, acc, cfg, lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=8,
+                           plan_cache=PlanCache(), device=cuda)
+    fingerprinted = executor.FINGERPRINT_CALLS
+    engine.warmup()
+    assert executor.FINGERPRINT_CALLS == fingerprinted
+    bucket, n_gemms = 8, len(model.graph.gemm_nodes)
+    x = torch.randn(bucket, *model.in_hw, model.in_ch, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(7))
+    served = engine.infer(x)
+    implicit = taom_gemm.OPERAND_LAUNCHES["implicit"]
+    execute_cnn(params, x, engine.plans[bucket], cfg, lowering=model.graph,
+                device=cuda, compiled=False)
+    implicit = taom_gemm.OPERAND_LAUNCHES["implicit"] - implicit
+    assert executor.FINGERPRINT_CALLS == fingerprinted + 1
+    full = compiled_forward(engine.plans[bucket], cfg, model.graph)
+    logits, fingerprints, _ = full(params, x)
+    assert executor.FINGERPRINT_CALLS == fingerprinted + 3
+    assert torch.equal(served, logits)
+    assert fingerprints.shape == (n_gemms,)
+    lean, = engine._fns[bucket]._graphs._graphs.values()
+    fat, = full._graphs._graphs.values()
+    names = taom_gemm.KERNELS + ("AbsFunctor",)
+    taom = {"taom_gemm_absmax": n_gemms, "taom_gemm_int8": n_gemms,
+            "taom_gemm_quant_x": implicit, "taom_gemm_small": 0}
+    rows = {}
+    for side, graph, abs_kernels in (("lean", lean, 0),
+                                     ("fat", fat, n_gemms)):
+        want = {**taom, "AbsFunctor": abs_kernels}
+        rows[side] = smoke.profile(graph.replay, 1, names, split=names,
+                                   want={"split_launches_per_run": want})
+        assert rows[side]["split_launches_per_run"] == want, (side, rows)
+    assert (rows["lean"]["device_kernels_per_run"] <=
+            rows["fat"]["device_kernels_per_run"] - 2 * n_gemms), rows
+    assert torch.equal(engine.infer(x), logits)
+
+
 def test_threads_serve_concurrently_bitwise_on_card(cuda):
     import threading
     from repro_torch.exec import ServingEngine
