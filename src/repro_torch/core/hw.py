@@ -287,7 +287,8 @@ def kernel_plan_mismatches(cfg: PhotonicConfig, acc,
 
 def check_kernel_plan_coherence(cfg: PhotonicConfig, plan) -> None:
     """Raise ValueError when a kernel config disagrees with ``plan``'s
-    hardware (the executor calls this in ``_validate``).
+    hardware (``execute_cnn`` calls this on every call, a
+    ``ServingEngine`` once for each bucket's plan).
 
     ``plan`` is duck-typed: anything with ``.acc`` and (optionally)
     ``.op`` — i.e. a scheduler CnnPlan.

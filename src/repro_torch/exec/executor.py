@@ -38,12 +38,18 @@ captures it in a CUDA graph:
   * ``compiled_logits`` is the serving engine's entry: the same walk and
     GEMMs, captured the same way, returning the logits alone, with no
     fingerprint reductions in its graph;
+  * ``sharded_forward`` is the data-parallel engine's entry: one loop
+    (``ShardedForward._lockstep``) runs the shards' segments between two
+    GEMMs in lockstep and the batch |max| exchange between them, each
+    segment eagerly on the CPU and as a replayed CUDA graph on the card;
   * per-layer numerics fingerprints (mean |activation|) stay on the device
     as one stacked tensor; ``ExecutionResult.traces`` copies them to the
     host only when a caller asks;
   * ``execute_cnn`` keeps the ExecutionResult API (``compiled=False``
     runs the eager body op by op, the baseline the reference keeps for
-    its throughput benchmark).
+    its throughput benchmark) and checks every call's plan and input
+    (``_validate``), as it takes plans from outside; the serving engine
+    checks its own plans once, when it is built.
 """
 from __future__ import annotations
 
@@ -301,9 +307,10 @@ class _Shard:
     at a time: segment 0 walks from the input to the first GEMM's
     operand, segment s runs GEMM s - 1 and walks on to GEMM s's operand,
     and the last one ends at the logits (``logits``).  A pinned shard's
-    GEMM quantizes with the batch's |max| (``segment``'s ``amax``, see
-    ``forward_shards_fn``), and each segment returns the |max| of the
-    operand it stops at (None at the end, or unpinned)."""
+    GEMM quantizes with the batch's |max|, which the lockstep loop
+    (``ShardedForward._lockstep``) leaves in the shard's static 0-dim
+    ``scale`` buffer, and each segment returns the |max| of the operand it
+    stops at (None at the end, or unpinned)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], x: torch.Tensor,
                  graph: lw.OpGraph, plan: CnnPlan, cfg: PhotonicConfig,
@@ -311,30 +318,31 @@ class _Shard:
         self._steps = lw.graph_steps(params, x, graph)
         self._gemm = None
         self._out = graph.output.name
-        self._plan, self._cfg, self._impl, self._pin = plan, cfg, impl, pin
+        self._plan, self._cfg, self._impl = plan, cfg, impl
+        self.pin, self.device = pin, x.device
+        self.scale = torch.zeros((), dtype=x.dtype, device=x.device)
         self.logits: Optional[torch.Tensor] = None
 
-    def segment(self, amax: Optional[torch.Tensor]
-                ) -> Optional[torch.Tensor]:
+    def segment(self) -> Optional[torch.Tensor]:
         try:
             if self._gemm is None:
                 self._gemm = self._next(next(self._steps))
             else:
                 cols, w, gi, _ = self._gemm
                 out = _layer_matmul(
-                    _pin_row(cols, amax) if self._pin else cols, w,
+                    _pin_row(cols, self.scale) if self.pin else cols, w,
                     self._cfg, None, self._plan.layers[gi], self._impl)
                 self._gemm = self._next(self._steps.send(
-                    out[:-1] if self._pin else out))
+                    out[:-1] if self.pin else out))
         except StopIteration as done:
             self.logits = done.value[self._out]
             return None
-        return self._gemm[0].abs().amax() if self._pin else None
+        return self._gemm[0].abs().amax() if self.pin else None
 
     def _next(self, gemm: tuple) -> tuple:
         # A pinned operand needs a real row: the im2col matrix (a view of
         # the activation at 1x1, stride 1); unpinned, the operand as it is.
-        if not self._pin:
+        if not self.pin:
             return gemm
         return (lw.gemm_matrix(gemm[0]),) + tuple(gemm[1:])
 
@@ -346,45 +354,12 @@ def _batch_amax(local: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack([a.to(home) for a in local]).amax()
 
 
-def forward_shards_fn(params: Sequence[Dict[str, torch.Tensor]],
-                      xs: Sequence[torch.Tensor], *, lowering,
-                      plan: CnnPlan, cfg: PhotonicConfig,
-                      impl: str) -> List[torch.Tensor]:
-    """The forward over the shards of one batch, noise off: xs[i] (on its
-    device, with its replica params[i]) -> each shard's logits.
-
-    The shards walk the graph in lockstep, a segment between two GEMMs at
-    a time (``_Shard``).  A photonic GEMM quantizes its activations with
-    ONE scale, the max over the whole batch, as the reference's
-    data-parallel forward does (GSPMD turns that max into an all-reduce):
-    each shard's |max| is reduced over the shards, and the shard's
-    operand gets one more row that pins its max to the global one (its
-    output row is dropped).  Rows are independent in every GEMM and glue
-    op (the global pool sums an image in one order whatever the batch,
-    ``lowering._mean_hw``), and the photonic GEMM's integer products are
-    exact in any order,
-    so each shard's logits are the rows of the one-device forward, bit
-    for bit.  (An EXACT-backend GEMM takes no scale and is run as it is.)
-    """
-    graph = cnn_mod.as_graph(lowering, plan=plan)
-    pin = _pins(cfg, xs)
-    shards = [_Shard(p, x, graph, plan, cfg, impl, pin)
-              for p, x in zip(params, xs)]
-    scales = [None] * len(shards)
-    for _ in range(len(graph.gemm_nodes) + 1):
-        local = []
-        for sh, x, scale in zip(shards, xs, scales):
-            with _on(x.device):
-                local.append(sh.segment(scale))
-        if local[0] is not None:
-            with trace.span("executor.exchange"):
-                amax = _batch_amax(local)
-                scales = [amax.to(x.device) for x in xs]
-    return [sh.logits for sh in shards]
-
-
 def _pins(cfg: PhotonicConfig, xs: Sequence[torch.Tensor]) -> bool:
-    return cfg.backend != Backend.EXACT and len(xs) > 1
+    """Whether the shards ``xs`` quantize with the batch's |max|: every
+    photonic backend does (an EXACT GEMM takes no scale), whatever the
+    number of shards.  ``perfbench``'s fault test patches it to leave the
+    exchange out."""
+    return cfg.backend != Backend.EXACT
 
 
 def lowering_fingerprint(lowering) -> str:
@@ -605,65 +580,92 @@ def compiled_logits(plan: CnnPlan, cfg: PhotonicConfig,
 
 class ShardedForward:
     """``fn(params_list, xs) -> [logits per shard]`` for one (lowering,
-    plan, cfg, impl): ``forward_shards_fn``, the data-parallel serving
-    forward (noise off); built by ``sharded_forward``.
+    plan, cfg, impl): the data-parallel serving forward over the shards
+    of one batch, noise off (xs[i] on its device, with its replica
+    params[i]); built by ``sharded_forward``.
 
-    On CUDA devices, the first call for a set of shapes, devices and
-    parameters captures each shard's forward into CUDA graphs of its own
-    on its own device, one graph per segment between two GEMMs
-    (``_Shard``), in one memory pool a shard.  A call replays the
-    segments in lockstep; between two segments it reduces the shards'
-    |max| and copies it into each shard's static scale buffer, a few
+    The shards walk the graph in lockstep, a segment between two GEMMs at
+    a time (``_Shard``).  A photonic GEMM quantizes its activations with
+    ONE scale, the max over the whole batch, as the reference's
+    data-parallel forward does (GSPMD turns that max into an all-reduce):
+    each shard's |max| is reduced over the shards, and the shard's
+    operand gets one more row that pins its max to the global one (its
+    output row is dropped).  Rows are independent in every GEMM and glue
+    op (the global pool sums an image in one order whatever the batch,
+    ``lowering._mean_hw``), and the photonic GEMM's integer products are
+    exact in any order, so each shard's logits are the rows of the
+    one-device forward, bit for bit.  (An EXACT-backend GEMM takes no
+    scale and is run as it is.)
+
+    One loop, ``_lockstep``, runs the segments and the exchange
+    between them.  On the CPU it runs each segment eagerly.  On CUDA
+    devices, the first call for a set of shapes, devices and parameters
+    captures each shard's segments into CUDA graphs of its own on its own
+    device, one graph a segment, in one memory pool a shard; a call
+    replays them through the same loop, which copies the batch's |max|
+    into the shards' static scale buffers between two segments, a few
     scalar copies a GEMM, whether the entries share one card or not.
-    ``trace_count`` counts one capture per key.  On the CPU it runs the
-    eager body."""
+    ``trace_count`` counts one capture per key."""
 
     def __init__(self, lowering, plan: CnnPlan, cfg: PhotonicConfig,
                  impl: str) -> None:
         if cfg.noise_enabled:
             raise ValueError("the sharded forward runs noise off")
         self._graph = cnn_mod.as_graph(lowering, plan=plan)
+        self._n_seg = len(self._graph.gemm_nodes) + 1
         self._plan, self._cfg, self._impl = plan, cfg, impl
-        self._body = functools.partial(forward_shards_fn, lowering=lowering,
-                                       plan=plan, cfg=cfg, impl=impl)
         self._graphs = _GraphTable()
 
     def __call__(self, params: Sequence[Dict[str, torch.Tensor]],
                  xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         if any(x.device.type != "cuda" for x in xs):
-            return self._body(params, xs)
+            return self._eager(params, xs)
         key = (tuple((tuple(x.shape), x.dtype, x.device) for x in xs),
                tuple(_params_key(p) for p in params))
         return self._graphs.run(key, xs, lambda: self._capture(params, xs))
 
-    def _capture(self, params, xs) -> _Captured:
-        self._body(params, xs)    # first-use costs stay out of the captures
+    def _shards(self, params, xs) -> List[_Shard]:
         pin = _pins(self._cfg, xs)
-        n_seg = len(self._graph.gemm_nodes) + 1
-        static = [x.clone() for x in xs]
-        scales = [torch.zeros((), dtype=x.dtype, device=x.device)
-                  for x in xs]
-        graphs, amaxes, shards = [], [], []
-        for p, x, scale in zip(params, static, scales):
-            sh = _Shard(p, x, self._graph, self._plan, self._cfg,
-                        self._impl, pin)
-            segs = cuda_graph.capture_all(
-                [lambda: sh.segment(scale)] * n_seg, x.device)
-            graphs.append([g for g, _ in segs])
-            amaxes.append([a for _, a in segs])
-            shards.append(sh)
+        return [_Shard(p, x, self._graph, self._plan, self._cfg, self._impl,
+                       pin) for p, x in zip(params, xs)]
 
-        def replay() -> None:
-            for s in range(n_seg):
-                for g, x in zip(graphs, static):
-                    with _on(x.device):
-                        g[s].replay()
-                if pin and s < n_seg - 1:
-                    with trace.span("executor.exchange"):
-                        amax = _batch_amax([a[s] for a in amaxes])
-                        for scale in scales:
-                            scale.copy_(amax)
-        return _Captured(replay, static, [sh.logits for sh in shards])
+    def _lockstep(self, shards: Sequence[_Shard],
+                  run: Callable[[int, int], Optional[torch.Tensor]]) -> None:
+        """Segments s = 0 .. n_gemm of every shard, in lockstep:
+        ``run(i, s)`` runs segment s of shard i and returns the |max| of
+        the operand it stops at.  After every segment but the last, a
+        pinned batch exchanges: the batch's |max| goes into each shard's
+        ``scale``, which its next segment's GEMM reads."""
+        last = self._n_seg - 1
+        for s in range(self._n_seg):
+            local = []
+            for i, sh in enumerate(shards):
+                with _on(sh.device):
+                    local.append(run(i, s))
+            if shards[0].pin and s < last:
+                with trace.span("executor.exchange"):
+                    amax = _batch_amax(local)
+                    for sh in shards:
+                        sh.scale.copy_(amax)
+
+    def _eager(self, params, xs) -> List[torch.Tensor]:
+        shards = self._shards(params, xs)
+        self._lockstep(shards, lambda i, s: shards[i].segment())
+        return [sh.logits for sh in shards]
+
+    def _capture(self, params, xs) -> _Captured:
+        self._eager(params, xs)   # first-use costs stay out of the captures
+        static = [x.clone() for x in xs]
+        shards = self._shards(params, static)
+        segs = [cuda_graph.capture_all([sh.segment] * self._n_seg,
+                                       sh.device) for sh in shards]
+
+        def replay_segment(i: int, s: int) -> Optional[torch.Tensor]:
+            graph, amax = segs[i][s]
+            graph.replay()
+            return amax
+        return _Captured(lambda: self._lockstep(shards, replay_segment),
+                         static, [sh.logits for sh in shards])
 
 
 def sharded_forward(plan: CnnPlan, cfg: PhotonicConfig,

@@ -29,17 +29,23 @@
     (``executor.sharded_forward``) so that every photonic GEMM quantizes
     with the whole batch's scale — the reference's GSPMD forward makes
     that max an all-reduce; the logits are concatenated back on the
-    engine's device, BITWISE equal to one device's.  On the card each
-    entry has CUDA graphs of its own for a bucket, one a segment between
-    two GEMMs, and the batch's scale is reduced between segments.  The
-    entries may repeat (replicas on the same card; the reference's Mesh
-    refuses a repeated device, ROADMAP D11);
+    engine's device, BITWISE equal to one device's.  One loop runs the
+    segments between two GEMMs and reduces the batch's scale between
+    them: eagerly on the CPU, and on the card by replaying each entry's
+    CUDA graphs for the bucket, one a segment.  The entries may repeat
+    (replicas on the same card; the reference's Mesh refuses a repeated
+    device, ROADMAP D11);
 
   * **serving metrics** — p50/p99 request latency, sustained throughput,
     padding-overhead fraction, plan-cache and compile-cache stats, and
     the photonic model's energy accounting of the served stream (modeled
     joules per inference, padding included, and sustained watts) from
     each bucket plan via core.hw.trace_energy.
+
+The engine checks its own bucket plans once, when it is built: the
+kernel config against each plan's hardware, and each plan against the
+lowering at the engine's (H, W).  A request is checked only for what it
+brings: its images' (H, W, C), and a seed when noise is on.
 
 Requests for one bucket share its graph's static buffers, so they
 serialize on that graph's lock around copy-in, replay and clone-out
@@ -168,9 +174,11 @@ class ServingEngine:
                                       self._in_hw)
         self.plans: Dict[int, CnnPlan] = schedule_buckets(
             gemms, acc, self.buckets, objective, cache=self.plan_cache)
-        # Every bucket shares one hardware spec, so checking one plan
-        # pins cfg against all of them (the executor re-checks per batch).
-        hw.check_kernel_plan_coherence(cfg, self.plans[self.buckets[0]])
+        # The plans are checked here, once: a request checks only its
+        # own shape (``infer``).
+        for plan in self.plans.values():
+            hw.check_kernel_plan_coherence(cfg, plan)
+            ex._validate_geometry(self._lowering, plan, *self._in_hw)
         # One compiled wrapper per bucket, built up front; the graphs are
         # captured at warmup() or first call.
         self._fns = {b: ex.compiled_logits(self.plans[b], cfg,
@@ -263,9 +271,6 @@ class ServingEngine:
             with trace.span("serving.pad"):
                 xb = torch.cat([chunk, chunk.new_zeros(
                     (pad,) + tuple(chunk.shape[1:]))])
-        with trace.span("serving.validate"):
-            ex._validate(xb, self.plans[bucket], self._cfg, self._lowering,
-                         seed)
         logits = self._run_bucket(xb, seed, bucket)
         te = self._bucket_energy[bucket]
         with self._lock:
@@ -310,7 +315,9 @@ class ServingEngine:
         the device so the recorded latency is true request latency;
         ``block=False`` returns as soon as the work is queued — such calls
         count toward request/image/padding totals but not toward the
-        latency percentiles or sustained_ips.
+        latency percentiles or sustained_ips.  Images of another (H, W, C)
+        than the engine's, or noise on with no seed, raise ValueError
+        before any forward.
         """
         t0 = time.perf_counter()
         x = torch.as_tensor(x)
@@ -321,6 +328,11 @@ class ServingEngine:
         n = x.shape[0]
         if n == 0:
             raise ValueError("empty request: x has batch 0")
+        served = (*self._in_hw, self._in_ch)
+        if tuple(x.shape[1:]) != served:
+            raise ValueError(f"x holds images of shape {tuple(x.shape[1:])}"
+                             f" but the engine serves {served} (H, W, C)")
+        ex._check_seed(self._cfg, seed)
         if not self._cfg.noise_enabled:
             seed = None
         n_chunks = -(-n // self.max_bucket)

@@ -28,8 +28,8 @@ threads) reach ``spans()`` but not its events.
 The spans (``exec/serving.py``, ``exec/executor.py``):
 
 * ``serving.infer`` — ``ServingEngine.infer``, the root: one request id;
-  ``serving.pad``, ``serving.validate`` — a chunk's zero padding (when it
-  pads) and ``executor._validate``; ``serving.scatter``,
+  ``serving.pad`` — a chunk's zero padding (when it pads);
+  ``serving.scatter``,
   ``serving.gather`` — the data-parallel bucket's chunks to the entries'
   cards and the logits back; ``serving.sync`` — the device-wide
   synchronize that ends a blocking request;
@@ -38,7 +38,7 @@ The spans (``exec/serving.py``, ``exec/executor.py``):
   ``executor.copy_in``, ``executor.replay``, ``executor.clone_out`` —
   under that lock; ``executor.exchange`` — one batch |max| reduction and
   its scale copies between two GEMM segments of the data-parallel
-  forward.
+  forward (``ShardedForward._lockstep``, eager or replaying graphs).
 
 Operator's use: open a profiler session around the requests, then read
 the spans (group them by ``request``)::

@@ -22,6 +22,7 @@ On the CPU the compiled wrapper runs the eager body and captures nothing
 """
 import dataclasses
 import json
+import re
 import threading
 
 import jax
@@ -249,6 +250,36 @@ def test_stats_have_the_reference_keys():
     assert stats["compile_cache"]["entries"] > 0
 
 
+@pytest.mark.parametrize("data_parallel", [False, True])
+@pytest.mark.parametrize("shape", [(8, 8, 3), (16, 16, 4)])
+def test_engine_rejects_a_request_of_another_shape(shape, data_parallel):
+    """A request whose images are not the engine's (H, W, C) raises
+    ValueError naming both shapes before any forward runs, on one device
+    and over two data-parallel entries."""
+    model, params, _, _ = _small()
+    kw = (dict(data_parallel=True, devices=["cpu", "cpu"]) if data_parallel
+          else {})
+    engine = ServingEngine(params, TACC, _cfg(), lowering=model.graph,
+                           in_hw=model.in_hw, max_batch=4, device="cpu",
+                           plan_cache=PlanCache(), **kw)
+    assert engine.data_parallel is data_parallel
+    engine.warmup()
+
+    def forward(*args):
+        raise AssertionError("a forward ran")
+    engine._run_bucket = forward
+    traces, before = texec.trace_count(), engine.stats()
+    for n in (1, 4, 5):
+        with pytest.raises(ValueError, match=re.escape(
+                f"{shape} but the engine serves (16, 16, 3)")):
+            engine.infer(torch.zeros((n, *shape)))
+    after = engine.stats()
+    assert texec.trace_count() == traces
+    for k in ("requests", "images", "batches"):
+        assert after[k] == before[k] == 0, k
+    assert engine._in_flight == 0
+
+
 # ---------------------------------------------------------------------------
 # MicroBatcher: the reference's cases (tests/test_serving.py), ported
 # ---------------------------------------------------------------------------
@@ -313,7 +344,8 @@ class TestMicroBatcher:
         _, engine = served
         with MicroBatcher(engine, max_delay_s=0.0) as mb:
             bad = mb.submit(torch.zeros((8, 8, 3)))      # wrong geometry
-            with pytest.raises(ValueError, match="rows"):
+            with pytest.raises(ValueError,
+                               match=r"\(8, 8, 3\).*\(16, 16, 3\)"):
                 bad.result(timeout=120)
             good = mb.submit(_images(900, 1)[0])
             assert good.result(timeout=120).shape == (10,)

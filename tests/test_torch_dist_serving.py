@@ -5,7 +5,7 @@ against the one-device engine, and the serving_engine example's §4.
 The data-parallel logits must be BITWISE equal to the one-device
 engine's for every bucket (the reference's claim for its GSPMD path): a
 bucket is split over the entries and the shards share each layer's
-quantize scale (``executor.forward_shards_fn``).  A shard served alone —
+quantize scale (``executor.ShardedForward``).  A shard served alone —
 its own scale — differs, which is what the shared scale is for."""
 import importlib.util
 import os

@@ -63,9 +63,9 @@ def test_no_profiler_no_spans():
 
 
 @pytest.mark.parametrize("n,counts", [
-    (3, {"serving.pad": 1, "serving.validate": 1}),
-    (4, {"serving.validate": 1}),
-    (7, {"serving.pad": 1, "serving.validate": 2}),   # chunks of 4 and 3
+    (3, {"serving.pad": 1}),
+    (4, {}),
+    (7, {"serving.pad": 1}),                # chunks of 4 and 3
 ])
 def test_one_request_spans_under_one_request_id(n, counts):
     model, engine = _engine()
